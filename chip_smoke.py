@@ -1,0 +1,400 @@
+#!/usr/bin/env python3
+"""Drive the torch port's keypose-prediction path on one NVIDIA GPU.
+
+Run from the root of the repository: ``python3 chip_smoke.py``. It
+
+1. prints the card's name and power limit (nvidia-smi);
+2. builds every CUDA kernel of the package from ``nvblox_mindmap_torch/csrc``
+   (one nvcc process per source, started together);
+3. holds each kernel against its plain torch version on the card at every
+   shape the keypose path gives it, and times kernel, plain version, one
+   library call for the same function (a yardstick the port never calls)
+   and the least time the card could take (``bound_ms``);
+4. runs mesh-only keypose prediction at full width (embedding 120, 8 heads,
+   2048 vertices x 768-d features, seeded random weights) through the flash
+   kernel: DDPM-100 at batch 1, DDIM-10 at batch 1 and batch 8. Each run's
+   kernel launches must be exactly 3 + 10*T, and its trajectory must match
+   the eager attention path on the card with the same noise (atol 5e-3);
+5. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}`` as
+   the last line.
+
+Any failure raises, and the script exits non-zero without the last line.
+It exits non-zero as well when no CUDA device is present or the package is
+not beside it.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+# Full-width mesh-only configuration (the JAX package's bench.py mesh cell).
+EMBEDDING = 120
+HEADS = 8
+VERTICES = 2048
+FEATURE_DIM = 768
+FPS_FACTOR = 5
+WORKSPACE = [[-0.37, -0.75, -0.13], [0.95, 0.75, 0.65]]
+TRAJ_ATOL = 5e-3
+DENOISE_ATOL = 1e-4  # fp32 eps, kernel vs einsum/softmax summation order
+KERNEL_ATOL = 2e-5
+
+
+def phase(name, **fields):
+    print(json.dumps({"phase": name, **fields}), flush=True)
+
+
+def gpu_time_ms(fn, reps=20, iters=5):
+    """Device time of one ``fn()`` call: a CUDA graph of ``reps`` calls,
+    replayed ``iters`` times between CUDA events, after a warm-up."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def host_ms(fn):
+    """Wall time of one ``fn()`` call that ends in a device synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def quartiles(times):
+    """(p50, q1, q3) of a list of times."""
+    q1, p50, q3 = statistics.quantiles(times, n=4)
+    return p50, q1, q3
+
+
+def profile(fn, wall_ms):
+    """Kernel time of one ``fn()`` call from torch.profiler (device events
+    only), its share of ``wall_ms`` (the unprofiled p50), and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda k: -k[1])
+    busy_ms = sum(k[1] for k in kernels)
+    return dict(device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
+                device_launches=sum(k[2] for k in kernels),
+                top=[dict(name=n[:80], ms=ms, count=c) for n, ms, c in kernels[:8]])
+
+
+def attention_bound(B, H, L, S, D, masked):
+    """(bound_ms, bound_by): FLOPs 4*B*H*L*S*D at the fp32 peak vs each
+    input read once and the output written once at the HBM rate."""
+    flops = 4.0 * B * H * L * S * D
+    nbytes = 4.0 * (2 * B * H * L * D + 2 * B * H * S * D) + (B * S if masked else 0)
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_kernels():
+    """Phase 3: flash kernel vs plain version at every path shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from nvblox_mindmap_torch.ops import flash_attention as fa
+
+    # (what, B, H, L, S, D, masked). D=15: full width (E=120, 8 heads):
+    # encoder gripper cross-attention (L=3 arm, 6 humanoid) over 2048
+    # vertices, denoiser cross-attention (L=1 arm, 2 humanoid) with the
+    # context mask, self-attention over 1 + 409 FPS tokens. D=9: the
+    # committed fixtures (E=72): 512 vertices, 128 FPS tokens.
+    shapes = []
+    for B in (1, 8):
+        shapes += [
+            ("encoder_cross", B, HEADS, 3, VERTICES, 15, False),
+            ("encoder_cross_humanoid", B, HEADS, 6, VERTICES, 15, False),
+            ("denoiser_cross", B, HEADS, 1, VERTICES, 15, True),
+            ("denoiser_cross_humanoid", B, HEADS, 2, VERTICES, 15, True),
+            ("self", B, HEADS, 410, 410, 15, True),
+            ("fixture_encoder_cross", B, HEADS, 3, 512, 9, False),
+            ("fixture_denoiser_cross", B, HEADS, 1, 512, 9, True),
+            ("fixture_self", B, HEADS, 129, 129, 9, True),
+            ("fixture_self_humanoid", B, HEADS, 130, 130, 9, True),
+        ]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {}
+    for what, B, H, L, S, D, masked in shapes:
+        q = torch.randn(B, H, L, D, device="cuda", generator=gen) * D**-0.5
+        k = torch.randn(B, H, S, D, device="cuda", generator=gen)
+        v = torch.randn(B, H, S, D, device="cuda", generator=gen)
+        mask = None
+        if masked:
+            mask = torch.rand(B, S, device="cuda", generator=gen) > 0.2
+        out = fa.flash_attention(q, k, v, mask)
+        ref = fa.flash_attention_reference(q, k, v, mask)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if not err <= KERNEL_ATOL:
+            raise AssertionError(f"{what} B={B}: kernel vs plain {err} > {KERNEL_ATOL}")
+        sdpa_mask = None if mask is None else mask[:, None, None, :]
+        kernel_ms = gpu_time_ms(lambda: fa.flash_attention(q, k, v, mask))
+        plain_ms = gpu_time_ms(lambda: fa.flash_attention_reference(q, k, v, mask))
+        library_ms = gpu_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=sdpa_mask, scale=1.0))
+        bound_ms, bound_by = attention_bound(B, H, L, S, D, masked)
+        row = dict(what=what, B=B, H=H, L=L, S=S, D=D, masked=masked,
+                   max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        results[(what, B)] = row
+        phase("kernel_check", kernel="flash_attention", **row)
+
+    # A batch element with no valid key must come out as exact zeros.
+    B, L, S, D = 2, 410, 410, 15
+    q = torch.randn(B, HEADS, L, D, device="cuda", generator=gen)
+    k = torch.randn(B, HEADS, S, D, device="cuda", generator=gen)
+    v = torch.randn(B, HEADS, S, D, device="cuda", generator=gen)
+    mask = torch.ones(B, S, dtype=torch.bool, device="cuda")
+    mask[0] = False
+    out = fa.flash_attention(q, k, v, mask)
+    ref = fa.flash_attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    if not bool((out[0] == 0).all()) or not bool((out[1] != 0).any()):
+        raise AssertionError("fully masked batch element is not exactly zero")
+    err = (out - ref).abs().max().item()
+    if not err <= KERNEL_ATOL:
+        raise AssertionError(f"fully masked case: kernel vs plain {err}")
+    phase("kernel_check_fully_masked", kernel="flash_attention", max_abs_err=err,
+          masked_element_exact_zero=True)
+    return results
+
+
+def make_batch(B, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def pose8(shape):
+        pos = rng.uniform(-0.3, 0.6, size=shape + (3,))
+        quat = rng.normal(size=shape + (4,))
+        quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+        close = rng.integers(0, 2, size=shape + (1,)).astype(np.float64)
+        return np.concatenate([pos, quat, close], -1).astype(np.float32)
+
+    return {
+        "gripper_history": pose8((B, 3, 1)),
+        "vertices": rng.uniform(-0.3, 0.6, size=(B, VERTICES, 3)).astype(np.float32),
+        "vertex_features": rng.normal(size=(B, VERTICES, FEATURE_DIM)).astype(np.float32),
+        "vertices_valid_mask": np.ones((B, VERTICES), dtype=bool),
+    }
+
+
+def run_slice():
+    """Phase 4: full-width mesh keypose prediction through the kernel."""
+    import numpy as np
+    import torch
+
+    from nvblox_mindmap_torch.models.converter import (
+        apply_inference_settings,
+        convert_diffusion_scheduler,
+        convert_to_flash_attention,
+    )
+    from nvblox_mindmap_torch.models.diffuser_actor import (
+        DiffuserActor,
+        DiffuserActorConfig,
+        prepare_inputs,
+        sample_trajectory,
+    )
+    from nvblox_mindmap_torch.ops import flash_attention as fa
+    from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
+    from nvblox_mindmap_torch.ops.fps import farthest_point_sampling
+
+    cfg = DiffuserActorConfig(
+        embedding_dim=EMBEDDING, num_attn_heads=HEADS, data_type="mesh",
+        vertex_feature_dim=FEATURE_DIM, diffusion_timesteps=100,
+        fps_subsampling_factor=FPS_FACTOR,
+    )
+    torch.manual_seed(0)
+    model = DiffuserActor(cfg, device="cuda")
+    bounds = np.asarray(WORKSPACE, dtype=np.float32)
+    runs = [
+        ("ddpm100_b1", 1, dict(num_inference_steps=100, scheduler_kind="ddpm",
+                               stochastic=True), 8),
+        ("ddim10_b1", 1, convert_diffusion_scheduler(10), 40),
+        ("ddim10_b8", 8, convert_diffusion_scheduler(10), 40),
+    ]
+    launches_total = 0
+    results = {}
+    for name, B, sampler, reps in runs:
+        prepared = prepare_inputs(make_batch(B), bounds, cfg, device="cuda")
+        T = sampler["num_inference_steps"]
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        init_noise = torch.randn((B, 1, 1, 9), generator=gen, device="cuda")
+        step_noise = torch.randn((T, B, 1, 1, 9), generator=gen, device="cuda")
+
+        def predict():
+            return sample_trajectory(model, prepared, bounds, init_noise=init_noise,
+                                     step_noise=step_noise, **sampler)
+
+        # One denoiser pass, eager vs flash attention, on the same inputs.
+        set_default_attention_impl("eager")
+        with torch.no_grad():
+            fixed = model.encode_prepared(prepared)
+            t_first = torch.full((B,), 99.0, device="cuda")
+            eps_eager = model.denoise(init_noise, t_first, fixed)[0]
+            set_default_attention_impl("flash")
+            eps_flash = model.denoise(init_noise, t_first, fixed)[0]
+        eps_err = (eps_flash - eps_eager).abs().max().item()
+        if not eps_err <= DENOISE_ATOL:
+            raise AssertionError(f"{name}: flash vs eager denoiser {eps_err} > {DENOISE_ATOL}")
+
+        set_default_attention_impl("eager")
+        traj_eager, _, weights_eager = predict()
+        if weights_eager is None:
+            raise AssertionError("eager path returned no attention weights")
+
+        rest = apply_inference_settings(convert_to_flash_attention())
+        if rest:
+            raise AssertionError(f"unexpected sampler settings {rest}")
+        fa.flash_attention.launches = 0
+        traj, head_yaw, weights = predict()
+        torch.cuda.synchronize()
+        launches = fa.flash_attention.launches
+        expected = 3 + 10 * T
+        if launches != expected:
+            raise AssertionError(f"{name}: {launches} kernel launches, expected {expected}")
+        launches_total += launches
+        if weights is not None:
+            raise AssertionError("flash path materialized attention weights")
+        if traj.shape != (B, 1, 1, 8) or not bool(torch.isfinite(traj).all()):
+            raise AssertionError(f"{name}: bad trajectory {traj.shape}")
+        quat_norm = traj[..., 3:7].norm(dim=-1)
+        if not bool(((quat_norm - 1).abs() < 1e-4).all()):
+            raise AssertionError(f"{name}: quaternions are not unit")
+        if not bool(((traj[..., 7] >= 0) & (traj[..., 7] <= 1)).all()):
+            raise AssertionError(f"{name}: openness outside [0, 1]")
+        err = (traj - traj_eager).abs().max().item()
+        if not err <= TRAJ_ATOL:
+            raise AssertionError(f"{name}: flash vs eager trajectory {err} > {TRAJ_ATOL}")
+
+        # Host clock around whole predictions, flash and eager attention in
+        # turns (the order alternating), so both see the same host noise.
+        times = {"flash": [], "eager": []}
+        for i in range(reps):
+            for impl in (("flash", "eager") if i % 2 == 0 else ("eager", "flash")):
+                set_default_attention_impl(impl)
+                times[impl].append(host_ms(predict))
+        set_default_attention_impl("flash")
+        p50_flash, q1_flash, q3_flash = quartiles(times["flash"])
+        p50_eager, q1_eager, q3_eager = quartiles(times["eager"])
+        results[name] = dict(B=B, steps=T, launches=launches,
+                             denoiser_max_abs_err_vs_eager=eps_err,
+                             max_abs_err_vs_eager=err, reps=reps,
+                             p50_ms=p50_flash, q1_ms=q1_flash, q3_ms=q3_flash,
+                             p50_ms_eager_attention=p50_eager,
+                             q1_ms_eager_attention=q1_eager,
+                             q3_ms_eager_attention=q3_eager)
+        if name == "ddim10_b1":
+            results[name]["profile"] = profile(predict, p50_flash)
+        phase("slice", run=name, **results[name])
+
+    # Feature-space FPS at the full-width shape: 409 samples of 2048 tokens.
+    for B in (1, 8):
+        feats = torch.randn(B, VERTICES, EMBEDDING, device="cuda")
+        k = VERTICES // FPS_FACTOR
+        fps_ms, q1, q3 = quartiles([host_ms(lambda: farthest_point_sampling(feats, k))
+                                    for _ in range(20)])
+        phase("fps", B=B, N=VERTICES, C=EMBEDDING, samples=k, p50_ms=fps_ms,
+              q1_ms=q1, q3_ms=q3)
+        results[f"fps_b{B}"] = fps_ms
+    set_default_attention_impl("eager")
+    return results, launches_total
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(ROOT, "nvblox_mindmap_torch")):
+        print("chip_smoke: run it from the repository root", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+
+    from nvblox_mindmap_torch.ops import _build
+
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    phase("build", seconds=time.perf_counter() - t0, kernels=sorted(built),
+          ptxas=[line.strip() for out in built.values() for line in out.splitlines()
+                 if "registers" in line])
+
+    checks = check_kernels()
+    slice_results, launches = run_slice()
+
+    main_shape = checks[("self", 1)]
+    print(json.dumps({"kernels": [{
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "nvblox_mindmap_torch/csrc/flash_attention.cu",
+        "replaces": "nvblox_mindmap_tpu/ops/flash_attention.py:43",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in checks.values()),
+        "ms": main_shape["kernel_ms"],
+        "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": main_shape["library_ms"],
+        "shape": "self-attention B=1 H=8 L=S=410 D=15 masked",
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,130 @@
+"""Rotation conversions in torch: the subset the keypose path uses.
+
+Port of ``nvblox_mindmap_tpu/geometry/rotations.py`` with the same
+conventions: quaternions are real-part-first (wxyz); the 6D representation
+packs the first two *columns* of the rotation matrix; reconstruction from 6D
+is the cross-product Gram-Schmidt (x = norm(b1), z = norm(x cross b2),
+y = z cross x). All functions broadcast over leading dims.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def normalise_quat(x: torch.Tensor) -> torch.Tensor:
+    """Normalize quaternions with a 1e-10 clamp on the norm."""
+    norm = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    return x / torch.clamp(norm, min=1e-10)
+
+
+def standardize_quaternion(q: torch.Tensor) -> torch.Tensor:
+    """Flip sign so the real part is non-negative."""
+    return torch.where(q[..., 0:1] < 0, -q, q)
+
+
+def quaternion_raw_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    aw, ax, ay, az = torch.unbind(a, dim=-1)
+    bw, bx, by, bz = torch.unbind(b, dim=-1)
+    ow = aw * bw - ax * bx - ay * by - az * bz
+    ox = aw * bx + ax * bw + ay * bz - az * by
+    oy = aw * by - ax * bz + ay * bw + az * bx
+    oz = aw * bz + ax * by - ay * bx + az * bw
+    return torch.stack((ow, ox, oy, oz), dim=-1)
+
+
+def quaternion_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Compose two rotations; result has non-negative real part."""
+    return standardize_quaternion(quaternion_raw_multiply(a, b))
+
+
+def quaternion_invert(q: torch.Tensor) -> torch.Tensor:
+    """Inverse of a unit quaternion (conjugate)."""
+    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
+def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (wxyz) to rotation matrix, shape (..., 3, 3)."""
+    r, i, j, k = torch.unbind(q, dim=-1)
+    two_s = 2.0 / torch.sum(q * q, dim=-1)
+    o = torch.stack(
+        (
+            1 - two_s * (j * j + k * k),
+            two_s * (i * j - k * r),
+            two_s * (i * k + j * r),
+            two_s * (i * j + k * r),
+            1 - two_s * (i * i + k * k),
+            two_s * (j * k - i * r),
+            two_s * (i * k - j * r),
+            two_s * (j * k + i * r),
+            1 - two_s * (i * i + j * j),
+        ),
+        dim=-1,
+    )
+    return o.reshape(q.shape[:-1] + (3, 3))
+
+
+def _sqrt_positive_part(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(max(0, x))."""
+    return torch.where(x > 0, torch.sqrt(torch.where(x > 0, x, 1.0)), 0.0)
+
+
+def matrix_to_quaternion(matrix: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix to quaternion (wxyz).
+
+    Picks the best-conditioned of four algebraically equivalent candidates:
+    the largest of the four |q| components, the first on a tie (argmax), with
+    the same 0.1 floor on the divisor as the JAX package, so the quaternion's
+    sign agrees with it.
+    """
+    if matrix.shape[-1] != 3 or matrix.shape[-2] != 3:
+        raise ValueError(f"Invalid rotation matrix shape {tuple(matrix.shape)}")
+    batch_dim = matrix.shape[:-2]
+    m = matrix.reshape(batch_dim + (9,))
+    m00, m01, m02, m10, m11, m12, m20, m21, m22 = torch.unbind(m, dim=-1)
+
+    q_abs = _sqrt_positive_part(
+        torch.stack(
+            [
+                1.0 + m00 + m11 + m22,
+                1.0 + m00 - m11 - m22,
+                1.0 - m00 + m11 - m22,
+                1.0 - m00 - m11 + m22,
+            ],
+            dim=-1,
+        )
+    )
+    quat_by_rijk = torch.stack(
+        [
+            torch.stack([q_abs[..., 0] ** 2, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+            torch.stack([m21 - m12, q_abs[..., 1] ** 2, m10 + m01, m02 + m20], dim=-1),
+            torch.stack([m02 - m20, m10 + m01, q_abs[..., 2] ** 2, m12 + m21], dim=-1),
+            torch.stack([m10 - m01, m20 + m02, m21 + m12, q_abs[..., 3] ** 2], dim=-1),
+        ],
+        dim=-2,
+    )
+    quat_candidates = quat_by_rijk / (
+        2.0 * torch.clamp(q_abs[..., None], min=0.1)
+    )
+    # torch.argmax, like jnp.argmax, returns the first index of the maximum.
+    best = torch.argmax(q_abs, dim=-1)
+    index = best[..., None, None].expand(batch_dim + (1, 4))
+    return torch.gather(quat_candidates, -2, index).squeeze(-2)
+
+
+def _normalize_vector(v: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    mag = torch.linalg.norm(v, dim=-1, keepdim=True)
+    return v / torch.clamp(mag, min=eps)
+
+
+def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
+    """6D (first two matrix columns) to rotation matrix, columns (x, y, z)."""
+    x_raw, y_raw = d6[..., 0:3], d6[..., 3:6]
+    x = _normalize_vector(x_raw)
+    z = _normalize_vector(torch.linalg.cross(x, y_raw, dim=-1))
+    y = torch.linalg.cross(z, x, dim=-1)
+    return torch.stack([x, y, z], dim=-1)
+
+
+def matrix_to_rotation_6d(matrix: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix to 6D: the first two columns, flattened column-major."""
+    return matrix[..., :, :2].transpose(-1, -2).reshape(matrix.shape[:-2] + (6,))

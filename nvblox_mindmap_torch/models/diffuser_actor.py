@@ -1,0 +1,356 @@
+"""DiffuserActor: 3D denoising-diffusion keypose policy (torch).
+
+Port of the mesh-only inference path of
+``nvblox_mindmap_tpu/models/diffuser_actor.py``:
+
+- ``prepare_inputs``: split closedness from the history, optionally make the
+  history relative to the current pose, normalize positions to the workspace
+  and quaternions to continuous 6D;
+- ``DiffuserActor.encode``: mesh-vertex feature tokens, openness-conditioned
+  gripper-history queries, feature-space FPS;
+- ``DiffuserActor.denoise``: one ``DiffusionHead`` pass;
+- ``sample_trajectory``: DDPM or DDIM reverse diffusion over the denoiser,
+  then unnormalize (and restore the absolute pose in relative mode).
+
+The JAX sampler is one ``lax.scan``; here it is a Python loop of eager
+steps. Its noise comes either from the caller (``init_noise`` and
+``step_noise``, which parity tests take from the JAX key splits) or from a
+``torch.Generator``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from nvblox_mindmap_torch.device import DeviceLike, resolve_device
+from nvblox_mindmap_torch.geometry.rotations import (
+    quaternion_invert,
+    quaternion_multiply,
+)
+from nvblox_mindmap_torch.models.diffusion_head import DiffusionHead
+from nvblox_mindmap_torch.models.encoder import Encoder
+from nvblox_mindmap_torch.models.normalization import (
+    normalize_pos,
+    normalize_trajectory,
+    unnormalize_trajectory,
+)
+from nvblox_mindmap_torch.ops.schedulers import DiffusionSchedule, make_schedule
+
+IMAGE_SLICE = "the image-path slice (ViT backbone and encode_images)"
+LANGUAGE_SLICE = "the language slice (ParallelAttention)"
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffuserActorConfig:
+    """Static model configuration: the fields of the JAX config this slice uses.
+
+    ``vertex_feature_dim`` is the width of the mesh vertex features (flax
+    infers it from the first batch; torch sizes ``reconstruction_encoder``
+    up front): 768 for RADIO features, 3 for the RGB fixtures.
+    """
+
+    embedding_dim: int = 120
+    num_attn_heads: int = 8
+    nhist: int = 3
+    ngrippers: int = 1
+    prediction_horizon: int = 1
+    data_type: str = "mesh"
+    vertex_feature_dim: int = 768
+    fps_subsampling_factor: int = 5
+    use_instruction: bool = False
+    lang_enhanced: bool = False
+    rotation_parametrization: str = "6D"
+    quaternion_format: str = "wxyz"
+    diffusion_timesteps: int = 100
+    relative: bool = False
+    predict_head_yaw: bool = False
+
+    def __post_init__(self):
+        if "6D" not in self.rotation_parametrization:
+            raise NotImplementedError(
+                "rotation_parametrization must contain '6D' (got "
+                f"{self.rotation_parametrization!r}); quaternion-space "
+                "diffusion is not implemented"
+            )
+        if self.data_type != "mesh":
+            raise NotImplementedError(
+                f"data_type {self.data_type!r} is added by {IMAGE_SLICE}"
+            )
+        if self.use_instruction or self.lang_enhanced:
+            raise NotImplementedError(
+                f"use_instruction / lang_enhanced are added by {LANGUAGE_SLICE}"
+            )
+
+    def schedules(self, kind: str = "ddpm") -> Tuple[DiffusionSchedule, DiffusionSchedule]:
+        """(position, rotation) noise schedules."""
+        return (
+            make_schedule("scaled_linear", self.diffusion_timesteps, kind=kind),
+            make_schedule("squaredcos_cap_v2", self.diffusion_timesteps, kind=kind),
+        )
+
+
+class DiffuserActor(nn.Module):
+    """The policy's parameterized compute: ``encode`` and ``denoise``.
+
+    Built on ``device`` (default ``cuda``; raises when CUDA is absent and no
+    device is given).
+    """
+
+    def __init__(self, config: DiffuserActorConfig, device: DeviceLike = None):
+        super().__init__()
+        device = resolve_device(device)
+        cfg = config
+        self.config = cfg
+        self.encoder = Encoder(
+            embedding_dim=cfg.embedding_dim,
+            nhist=cfg.nhist,
+            ngrippers=cfg.ngrippers,
+            num_attn_heads=cfg.num_attn_heads,
+            fps_subsampling_factor=cfg.fps_subsampling_factor,
+            vertex_feature_dim=cfg.vertex_feature_dim,
+        )
+        self.head = DiffusionHead(
+            embedding_dim=cfg.embedding_dim,
+            num_attn_heads=cfg.num_attn_heads,
+            rotation_dim=6,
+            nhist=cfg.nhist,
+            ngrippers=cfg.ngrippers,
+            predict_head_yaw=cfg.predict_head_yaw,
+        )
+        self.to(device)
+        self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.head.traj_encoder.weight.device
+
+    def encode(
+        self,
+        vertex_features: torch.Tensor,
+        vertices: torch.Tensor,
+        vertices_valid_mask: Optional[torch.Tensor],
+        gripper_history: torch.Tensor,
+        curr_closedness: torch.Tensor,
+    ) -> Dict[str, Any]:
+        """Encode the mesh and gripper history into fixed denoiser inputs.
+
+        Shapes: vertex_features (B, Nv, C); vertices (B, Nv, 3); gripper_history
+        (B, nhist, G, 9); curr_closedness (B, nhist, G, 1).
+        """
+        context_feats, context = self.encoder.encode_feature_pointcloud(
+            vertex_features, vertices
+        )
+        context_mask = (
+            vertices_valid_mask
+            if vertices_valid_mask is not None
+            else torch.ones(context_feats.shape[:2], dtype=torch.bool,
+                            device=context_feats.device)
+        )
+        adaln_gripper_feats, _, gripper_attn_weights = (
+            self.encoder.encode_gripper_history(
+                gripper_history, context_feats, context, curr_closedness
+            )
+        )
+        fps_feats, fps_pos, fps_mask = self.encoder.run_fps(
+            context_feats, self.encoder.relative_pe(context), context_mask
+        )
+        return {
+            "context_feats": context_feats,
+            "context": context,
+            "context_mask": context_mask,
+            "adaln_gripper_feats": adaln_gripper_feats,
+            "fps_feats": fps_feats,
+            "fps_pos": fps_pos,
+            "fps_mask": fps_mask,
+            "gripper_attn_weights": gripper_attn_weights,
+        }
+
+    def encode_prepared(self, prepared: Dict[str, Any]) -> Dict[str, Any]:
+        """``encode`` on the output of ``prepare_inputs``."""
+        return self.encode(
+            prepared["vertex_features"],
+            prepared["vertices"],
+            prepared.get("vertices_valid_mask"),
+            prepared["gripper_history"],
+            prepared["curr_closedness"],
+        )
+
+    def denoise(self, trajectory: torch.Tensor, timestep: torch.Tensor,
+                fixed_inputs: Dict[str, Any]):
+        """One denoiser pass: (B, L, G, 9) noisy traj -> (B, L, G, 10) eps+open."""
+        return self.head(
+            trajectory,
+            timestep,
+            context_feats=fixed_inputs["context_feats"],
+            context=fixed_inputs["context"],
+            context_mask=fixed_inputs["context_mask"],
+            adaln_gripper_feats=fixed_inputs["adaln_gripper_feats"],
+            fps_feats=fixed_inputs["fps_feats"],
+            fps_pos=fixed_inputs["fps_pos"],
+            fps_mask=fixed_inputs["fps_mask"],
+        )
+
+
+def prepare_inputs(
+    batch: Dict[str, Any],
+    workspace_bounds,
+    config: DiffuserActorConfig,
+    device: DeviceLike = None,
+) -> Dict[str, Any]:
+    """Pure-data preprocessing shared by training and inference.
+
+    Expects batch keys (numpy arrays or tensors, channel-last):
+    "gripper_history" (B, nhist, G, 8), "vertex_features" (B, Nv, C),
+    "vertices" (B, Nv, 3), optional "vertices_valid_mask" (B, Nv),
+    "gt_gripper_pred" (B, L, G, 8) and "gt_head_yaw". Returns tensors on
+    ``device`` (default ``cuda``). Mesh vertices stay absolute in relative
+    mode, as in the JAX package and upstream.
+    """
+    device = resolve_device(device)
+    if batch.get("rgbs") is not None or batch.get("pcds") is not None:
+        raise NotImplementedError(f"image inputs are added by {IMAGE_SLICE}")
+
+    def on_device(x):
+        return None if x is None else torch.as_tensor(x, device=device)
+
+    bounds = on_device(workspace_bounds).to(torch.float32)
+    out: Dict[str, Any] = {}
+    gripper_history = on_device(batch["gripper_history"])
+    out["curr_closedness"] = gripper_history[..., 7:8]
+    gripper_history = gripper_history[..., :7]
+    out["current_pose"] = gripper_history[:, -1]  # (B, G, 7)
+    gt = on_device(batch.get("gt_gripper_pred"))
+
+    if config.relative:
+        # Translate the history by the current pose; translate and rotate
+        # the ground-truth trajectory.
+        current_pos = out["current_pose"][..., :3]  # (B, G, 3)
+        current_quat = out["current_pose"][..., 3:7]
+        gripper_history = torch.cat(
+            [gripper_history[..., :3] - current_pos[:, None], gripper_history[..., 3:]],
+            dim=-1,
+        )
+        if gt is not None:
+            rel_pos = gt[..., :3] - current_pos[:, None]
+            rel_quat = quaternion_multiply(
+                quaternion_invert(current_quat)[:, None], gt[..., 3:7]
+            )
+            gt = torch.cat([rel_pos, rel_quat, gt[..., 7:]], dim=-1)
+
+    out["gripper_history"] = normalize_trajectory(
+        gripper_history, bounds, config.rotation_parametrization,
+        config.quaternion_format,
+    )
+    if batch.get("vertices") is not None:
+        out["vertices"], _ = normalize_pos(on_device(batch["vertices"]), bounds)
+        out["vertex_features"] = on_device(batch["vertex_features"])
+        out["vertices_valid_mask"] = on_device(batch.get("vertices_valid_mask"))
+    if gt is not None:
+        if gt.shape[-1] != 8:
+            raise ValueError(f"gt_gripper_pred must be (..., 8), got {tuple(gt.shape)}")
+        out["gt_openness"] = gt[..., 7:]
+        out["gt_gripper_pred"] = normalize_trajectory(
+            gt[..., :7], bounds, config.rotation_parametrization,
+            config.quaternion_format,
+        )
+    out["gt_head_yaw"] = on_device(batch.get("gt_head_yaw"))
+    return out
+
+
+@torch.no_grad()
+def sample_trajectory(
+    model: DiffuserActor,
+    prepared: Dict[str, Any],
+    workspace_bounds,
+    num_inference_steps: Optional[int] = None,
+    scheduler_kind: str = "ddpm",
+    stochastic: bool = True,
+    normalized: bool = False,
+    timestep_spacing: str = "leading",
+    clip_sample: Optional[bool] = None,
+    init_noise: Optional[torch.Tensor] = None,
+    step_noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+):
+    """Full reverse-diffusion sampling on the model's device.
+
+    Noise: either ``init_noise`` (B, L, G, 9) with ``step_noise``
+    (T, B, L, G, 9) (its [..., :3] feeds the position step and [..., 3:9]
+    the rotation step; only read when ``stochastic``), or a
+    ``torch.Generator`` on the model's device to draw both.
+
+    Returns (trajectory (B, L, G, 8: pos+quat+openness prob),
+             head_yaw (B, L, 1) or None,
+             mean cross-attention weights (B, L*G, N), None under flash).
+    With ``normalized=True`` the trajectory stays in normalized space
+    (B, L, G, 10: pos3+6D+openness logit).
+    """
+    cfg = model.config
+    device = model.device
+    pos_sched, rot_sched = cfg.schedules(kind=scheduler_kind)
+    if clip_sample is not None:
+        pos_sched = dataclasses.replace(pos_sched, clip_sample=clip_sample)
+        rot_sched = dataclasses.replace(rot_sched, clip_sample=clip_sample)
+    fixed = model.encode_prepared(prepared)
+
+    B = prepared["gripper_history"].shape[0]
+    L, G = cfg.prediction_horizon, cfg.ngrippers
+    timesteps = pos_sched.timesteps(num_inference_steps, spacing=timestep_spacing)
+    T = timesteps.shape[0]
+    step_ratio = cfg.diffusion_timesteps // T
+
+    if init_noise is None:
+        if generator is None:
+            raise ValueError("pass init_noise and step_noise, or a torch.Generator")
+        init_noise = torch.randn((B, L, G, 9), generator=generator, device=device)
+        if stochastic:
+            step_noise = torch.randn((T, B, L, G, 9), generator=generator,
+                                     device=device)
+    elif stochastic and step_noise is None:
+        raise ValueError("stochastic sampling with init_noise needs step_noise")
+    trajectory = torch.as_tensor(init_noise, dtype=torch.float32, device=device)
+    if stochastic:
+        step_noise = torch.as_tensor(step_noise, dtype=torch.float32, device=device)
+
+    weights_sum = None
+    for i, t in enumerate(timesteps.tolist()):
+        t_batch = torch.full((B,), float(t), device=device)
+        pred, head_yaw, weights = model.denoise(trajectory, t_batch, fixed)
+        prev_t = t - step_ratio
+        noise = step_noise[i] if stochastic else None
+        pos = pos_sched.step(
+            pred[..., :3], t, trajectory[..., :3],
+            noise=None if noise is None else noise[..., :3], prev_t=prev_t,
+        )
+        rot = rot_sched.step(
+            pred[..., 3:9], t, trajectory[..., 3:9],
+            noise=None if noise is None else noise[..., 3:9], prev_t=prev_t,
+        )
+        trajectory = torch.cat([pos, rot], dim=-1)
+        if weights is not None:
+            weights_sum = weights if weights_sum is None else weights_sum + weights
+    # Openness and head yaw come from the final denoiser call; attention
+    # weights are averaged over all steps.
+    openness = pred[..., 9:]
+    mean_weights = None if weights_sum is None else weights_sum / T
+
+    trajectory = torch.cat([trajectory, openness], dim=-1)
+    if normalized:
+        return trajectory, head_yaw, mean_weights
+    bounds = torch.as_tensor(workspace_bounds, dtype=torch.float32, device=device)
+    trajectory = unnormalize_trajectory(
+        trajectory, bounds, cfg.rotation_parametrization, cfg.quaternion_format
+    )
+    if cfg.relative:
+        current_pos = prepared["current_pose"][..., :3]
+        current_quat = prepared["current_pose"][..., 3:7]
+        abs_pos = trajectory[..., :3] + current_pos[:, None]
+        abs_quat = quaternion_multiply(current_quat[:, None], trajectory[..., 3:7])
+        trajectory = torch.cat([abs_pos, abs_quat, trajectory[..., 7:]], dim=-1)
+    if cfg.predict_head_yaw and head_yaw is not None:
+        head_yaw = torch.clamp(head_yaw, -math.pi, math.pi - 1e-6)
+    return trajectory, head_yaw, mean_weights

@@ -1,0 +1,186 @@
+"""Denoising transformer head (torch, batch-first).
+
+Port of the non-language path of ``nvblox_mindmap_tpu/models/diffusion_head.py``:
+
+trajectory tokens -> [+ sinusoidal traj-time PE]
+  -> 2x rotary cross-attention to the full context (AdaLN-conditioned)
+  -> 4x self-attention over [trajectory || FPS context]
+  -> separate 2-layer rotation / position self-attention heads
+  -> MLP predictors (rot 6D, pos 3, openness logit, optional head yaw).
+
+The AdaLN signal is sinusoidal(timestep) MLP + flattened gripper-history
+embedding. Empty-context samples fall back to an all-active mask with zeroed
+features so softmax stays finite, branchless as in the JAX package.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from nvblox_mindmap_torch.models.layers import (
+    FFWRelativeCrossAttentionModule,
+    FFWRelativeSelfAttentionModule,
+)
+from nvblox_mindmap_torch.ops.positional import rotary_pe_3d, sinusoidal_pos_emb
+
+
+class Mlp(nn.Module):
+    def __init__(self, in_dim: int, hidden: int, out: int):
+        super().__init__()
+        self.fc1 = nn.Linear(in_dim, hidden)
+        self.fc2 = nn.Linear(hidden, out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.relu(self.fc1(x)))
+
+
+class DiffusionHead(nn.Module):
+    def __init__(
+        self,
+        embedding_dim: int = 120,
+        num_attn_heads: int = 8,
+        rotation_dim: int = 6,
+        nhist: int = 3,
+        ngrippers: int = 1,
+        predict_head_yaw: bool = False,
+    ):
+        super().__init__()
+        E = embedding_dim
+        self.embedding_dim = E
+        self.traj_encoder = nn.Linear(9, E)
+        self.time_emb_l1 = nn.Linear(E, E)
+        self.time_emb_l2 = nn.Linear(E, E)
+        self.gripper_hist_l1 = nn.Linear(nhist * ngrippers * E, E)
+        self.gripper_hist_l2 = nn.Linear(E, E)
+        self.cross_attn = FFWRelativeCrossAttentionModule(
+            E, num_attn_heads, num_layers=2, use_adaln=True
+        )
+        self.self_attn = FFWRelativeSelfAttentionModule(
+            E, num_attn_heads, num_layers=4, use_adaln=True
+        )
+        self.rotation_proj = nn.Linear(E, E)
+        self.rotation_self_attn = FFWRelativeSelfAttentionModule(
+            E, num_attn_heads, num_layers=2, use_adaln=True
+        )
+        self.rotation_predictor = Mlp(E, E, rotation_dim)
+        self.position_proj = nn.Linear(E, E)
+        self.position_self_attn = FFWRelativeSelfAttentionModule(
+            E, num_attn_heads, num_layers=2, use_adaln=True
+        )
+        self.position_predictor = Mlp(E, E, 3)
+        self.openness_predictor = Mlp(E, E, 1)
+        self.head_yaw_predictor = (
+            Mlp(ngrippers * E, E, 1) if predict_head_yaw else None
+        )
+
+    def encode_denoising_timestep(
+        self, timestep: torch.Tensor, gripper_history_features: torch.Tensor
+    ) -> torch.Tensor:
+        """(B,) timestep + (B, M, E) history features -> (B, E) AdaLN signal."""
+        t = sinusoidal_pos_emb(timestep, self.embedding_dim)
+        t = self.time_emb_l2(F.relu(self.time_emb_l1(t)))
+        g = gripper_history_features.reshape(gripper_history_features.shape[0], -1)
+        g = self.gripper_hist_l2(F.relu(self.gripper_hist_l1(g)))
+        return t + g
+
+    def forward(
+        self,
+        trajectory: torch.Tensor,
+        timestep: torch.Tensor,
+        context_feats: torch.Tensor,
+        context: torch.Tensor,
+        context_mask: torch.Tensor,
+        adaln_gripper_feats: torch.Tensor,
+        fps_feats: torch.Tensor,
+        fps_pos: torch.Tensor,
+        fps_mask: torch.Tensor,
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """Denoise one step.
+
+        Args:
+            trajectory: (B, L, G, 9) noisy normalized trajectory.
+            timestep: (B,) diffusion step indices.
+            context_feats/context/context_mask: full context tokens.
+            adaln_gripper_feats: (B, nhist*G, E) gripper-history embedding.
+            fps_feats/fps_pos/fps_mask: subsampled context tokens.
+
+        Returns:
+            (traj_pred (B, L, G, 10): pos+rot6d+openness logit,
+             head_yaw (B, L, 1) or None,
+             last cross-attn layer's weights averaged over heads (B, L*G, N),
+             or None under the flash impl).
+        """
+        B, L, G, _ = trajectory.shape
+        if trajectory.shape[-1] != 9:
+            raise ValueError(f"expected (B, L, G, 9) trajectories, got {tuple(trajectory.shape)}")
+        E = self.embedding_dim
+        n_traj = L * G
+
+        traj_feats = self.traj_encoder(trajectory).reshape(B, n_traj, E)
+        traj_time_pos = sinusoidal_pos_emb(
+            torch.arange(n_traj, dtype=torch.float32, device=trajectory.device), E
+        )[None]
+        traj_feats = traj_feats + traj_time_pos
+
+        # Branchless empty-sample fallback: all-masked rows become all-active
+        # with zeroed features so attention weights stay finite.
+        empty = ~torch.any(context_mask, dim=-1)
+        context_mask = context_mask | empty[:, None]
+        context_feats = torch.where(empty[:, None, None], 0.0, context_feats)
+        empty_fps = ~torch.any(fps_mask, dim=-1)
+        fps_mask = fps_mask | empty_fps[:, None]
+        fps_feats = torch.where(empty_fps[:, None, None], 0.0, fps_feats)
+
+        time_embs = self.encode_denoising_timestep(timestep, adaln_gripper_feats)
+
+        traj_xyz = trajectory[..., :3].reshape(B, n_traj, 3)
+        rel_gripper_pos = rotary_pe_3d(traj_xyz, E)
+        rel_context_pos = rotary_pe_3d(context, E)
+
+        outputs, all_weights = self.cross_attn(
+            traj_feats,
+            context_feats,
+            diff_ts=time_embs,
+            query_pos=rel_gripper_pos,
+            value_pos=rel_context_pos,
+            key_padding_mask=~context_mask,
+        )
+        features = torch.cat([outputs[-1], fps_feats], dim=1)
+        rel_pos = torch.cat([rel_gripper_pos, fps_pos], dim=1)
+        combined_mask = torch.cat(
+            [torch.zeros((B, n_traj), dtype=torch.bool, device=fps_mask.device),
+             ~fps_mask],
+            dim=1,
+        )
+        features = self.self_attn(
+            features, diff_ts=time_embs, query_pos=rel_pos,
+            key_padding_mask=combined_mask,
+        )[-1]
+
+        rot_feats = self.rotation_self_attn(
+            features, diff_ts=time_embs, query_pos=rel_pos,
+            key_padding_mask=combined_mask,
+        )[-1][:, :n_traj]
+        rotation = self.rotation_predictor(self.rotation_proj(rot_feats))
+
+        pos_feats = self.position_self_attn(
+            features, diff_ts=time_embs, query_pos=rel_pos,
+            key_padding_mask=combined_mask,
+        )[-1][:, :n_traj]
+        pos_feats = self.position_proj(pos_feats)
+        position = self.position_predictor(pos_feats)
+        openness = self.openness_predictor(pos_feats)
+
+        head_yaw = None
+        if self.head_yaw_predictor is not None:
+            head_yaw = self.head_yaw_predictor(pos_feats.reshape(B, L, G * E))
+
+        traj_pred = torch.cat([position, rotation, openness], dim=-1)
+        traj_pred = traj_pred.reshape(B, L, G, 10)
+        cross_attn_weights = (
+            None if all_weights[-1] is None else all_weights[-1].mean(dim=1)
+        )
+        return traj_pred, head_yaw, cross_attn_weights

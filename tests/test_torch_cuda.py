@@ -1,0 +1,120 @@
+"""Torch port on the card: the CUDA kernel against its plain version.
+
+Every test here needs an NVIDIA GPU and nvcc, and skips elsewhere. This file
+imports neither JAX nor the JAX package, so it runs on a machine without
+them; there, skip the JAX-importing ``tests/conftest.py``:
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+
+Tolerance: fp32 atol 2e-5, kernel vs plain version (the same function with
+another summation order); model outputs atol 5e-3 flash vs eager, the JAX
+package's own swap-test bound.
+"""
+import numpy as np
+import pytest
+import torch
+
+from nvblox_mindmap_torch.ops import flash_attention as fa
+
+pytestmark = pytest.mark.cuda
+ATOL = 2e-5
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc) to build and run the kernels")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize(
+    "B,H,L,S,D,masked",
+    [
+        (1, 8, 3, 2048, 15, False),
+        (8, 8, 1, 2048, 15, True),
+        (8, 8, 410, 410, 15, True),
+        (2, 8, 129, 129, 9, True),
+        (2, 3, 100, 130, 33, True),  # the D <= 64 template
+        (1, 12, 70, 200, 32, True),
+        (1, 12, 65, 197, 64, True),
+        (1, 1, 1, 1, 1, False),
+    ],
+)
+def test_kernel_matches_plain_version(gen, B, H, L, S, D, masked):
+    q = torch.randn(B, H, L, D, device="cuda", generator=gen) * D**-0.5
+    k = torch.randn(B, H, S, D, device="cuda", generator=gen)
+    v = torch.randn(B, H, S, D, device="cuda", generator=gen)
+    mask = None
+    if masked:
+        mask = torch.rand(B, S, device="cuda", generator=gen) > 0.3
+        mask[0] = False
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, mask)
+    ref = fa.flash_attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    torch.testing.assert_close(out, ref, rtol=0, atol=ATOL)
+    if masked:
+        assert bool((out[0] == 0).all())
+
+
+def test_wrapper_raises_instead_of_falling_back(gen):
+    z = torch.zeros(1, 1, 2, 8, device="cuda")
+    with pytest.raises(TypeError):
+        fa.flash_attention(z.double(), z.double(), z.double())
+    with pytest.raises(ValueError, match="head dims"):
+        w = torch.zeros(1, 1, 2, 65, device="cuda")
+        fa.flash_attention(w, w, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(1, 2, 3, 8, device="cuda").transpose(1, 2)
+        fa.flash_attention(t, t, t)
+    with pytest.raises(ValueError, match="one device"):
+        fa.flash_attention(z, z.cpu(), z)
+
+
+def test_model_flash_path_matches_eager_on_cuda(gen):
+    from nvblox_mindmap_torch.models.converter import (
+        apply_inference_settings,
+        convert_to_flash_attention,
+    )
+    from nvblox_mindmap_torch.models.diffuser_actor import (
+        DiffuserActor,
+        DiffuserActorConfig,
+        prepare_inputs,
+        sample_trajectory,
+    )
+    from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
+
+    cfg = DiffuserActorConfig(embedding_dim=72, num_attn_heads=8, vertex_feature_dim=3,
+                              diffusion_timesteps=100, fps_subsampling_factor=4,
+                              ngrippers=2, predict_head_yaw=True)
+    torch.manual_seed(0)
+    model = DiffuserActor(cfg)
+    rng = np.random.default_rng(0)
+    quat = rng.normal(size=(2, 3, 2, 4))
+    quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+    batch = {
+        "gripper_history": np.concatenate(
+            [rng.uniform(0, 1, (2, 3, 2, 3)), quat, np.ones((2, 3, 2, 1))], -1
+        ).astype(np.float32),
+        "vertices": rng.uniform(0, 1, (2, 512, 3)).astype(np.float32),
+        "vertex_features": rng.uniform(0, 1, (2, 512, 3)).astype(np.float32),
+    }
+    bounds = np.asarray([[0, 0, 0], [1, 1, 1]], np.float32)
+    prepared = prepare_inputs(batch, bounds, cfg)
+    init = torch.randn((2, 1, 2, 9), device="cuda", generator=gen)
+    kw = dict(num_inference_steps=10, scheduler_kind="ddim", stochastic=False,
+              init_noise=init)
+    try:
+        set_default_attention_impl("eager")
+        eager = sample_trajectory(model, prepared, bounds, **kw)
+        apply_inference_settings(convert_to_flash_attention())
+        before = fa.flash_attention.launches
+        flash = sample_trajectory(model, prepared, bounds, **kw)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches - before == 3 + 10 * 10
+    finally:
+        set_default_attention_impl("eager")
+    assert flash[2] is None and eager[2] is not None
+    torch.testing.assert_close(flash[0], eager[0], rtol=0, atol=5e-3)
+    torch.testing.assert_close(flash[1], eager[1], rtol=0, atol=5e-3)
