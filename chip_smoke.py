@@ -6,15 +6,21 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel of the package from ``nvblox_mindmap_torch/csrc``
    (one nvcc process per source, started together);
-3. holds each kernel against its plain torch version on the card at every
-   shape the keypose path gives it, and times kernel, plain version, one
-   library call for the same function (a yardstick the port never calls)
-   and the least time the card could take (``bound_ms``);
+3. holds each flash-attention kernel (``flash_attention_split`` for L <= 8
+   queries, ``flash_attention_tile`` above) against their plain torch version
+   on the card at every shape the keypose path gives it, on (B, L, H, D)
+   transposed views, and with fully masked batch elements and a wholly
+   masked split; times kernel, plain version, one library call for the same
+   function (a yardstick the port never calls) and the least time the card
+   could take (``bound_ms``); and times both kernels at L = 1..8 (phase
+   ``threshold``: the measurement behind the split kernel's limit);
 4. runs mesh-only keypose prediction at full width (embedding 120, 8 heads,
    2048 vertices x 768-d features, seeded random weights) through the flash
-   kernel: DDPM-100 at batch 1, DDIM-10 at batch 1 and batch 8. Each run's
-   kernel launches must be exactly 3 + 10*T, and its trajectory must match
-   the eager attention path on the card with the same noise (atol 5e-3);
+   kernels: DDPM-100 at batch 1, DDIM-10 at batch 1 and batch 8. Each run's
+   flash calls must be exactly 3 + 10*T: 3 + 2*T through the split kernel
+   (encoder and denoiser cross-attention) and 8*T through the tile kernel
+   (self-attention). Its trajectory must match the eager attention path on
+   the card with the same noise (atol 5e-3);
 5. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}`` as
    the last line.
 
@@ -33,8 +39,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, TF32
+# on the tensor cores (dense), HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # Full-width mesh-only configuration (the JAX package's bench.py mesh cell).
@@ -114,23 +122,31 @@ def profile(fn, wall_ms):
                for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
+    flash = [k for k in kernels if "flash_split_kernel" in k[0] or "flash_tile_kernel" in k[0]]
     return dict(device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
                 device_launches=sum(k[2] for k in kernels),
+                flash_kernels_ms=sum(k[1] for k in flash),
+                flash_kernels_launches=sum(k[2] for k in flash),
                 top=[dict(name=n[:80], ms=ms, count=c) for n, ms, c in kernels[:8]])
 
 
-def attention_bound(B, H, L, S, D, masked):
-    """(bound_ms, bound_by): FLOPs 4*B*H*L*S*D at the fp32 peak vs each
-    input read once and the output written once at the HBM rate."""
+def attention_bound(B, H, L, S, D, masked, kernel):
+    """(bound_ms, bound_by): the larger of the FLOPs 4*B*H*L*S*D at the peak
+    of the units the kernel uses (the split kernel: fp32 FMA; the tile
+    kernel: TF32 tensor cores, its 3xTF32 counted as three products) and
+    each input read once and the output written once at the HBM rate."""
     flops = 4.0 * B * H * L * S * D
     nbytes = 4.0 * (2 * B * H * L * D + 2 * B * H * S * D) + (B * S if masked else 0)
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    if kernel == "flash_attention_tile":
+        t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    else:
+        t_ops = flops / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def check_kernels():
-    """Phase 3: flash kernel vs plain version at every path shape."""
+    """Phase 3: flash kernels vs plain version at every path shape."""
     import torch
     import torch.nn.functional as F
 
@@ -163,42 +179,99 @@ def check_kernels():
         mask = None
         if masked:
             mask = torch.rand(B, S, device="cuda", generator=gen) > 0.2
+        kernel = fa.kernel_for(L)
         out = fa.flash_attention(q, k, v, mask)
         ref = fa.flash_attention_reference(q, k, v, mask)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         if not err <= KERNEL_ATOL:
-            raise AssertionError(f"{what} B={B}: kernel vs plain {err} > {KERNEL_ATOL}")
+            raise AssertionError(f"{what} B={B}: {kernel} vs plain {err} > {KERNEL_ATOL}")
         sdpa_mask = None if mask is None else mask[:, None, None, :]
         kernel_ms = gpu_time_ms(lambda: fa.flash_attention(q, k, v, mask))
         plain_ms = gpu_time_ms(lambda: fa.flash_attention_reference(q, k, v, mask))
         library_ms = gpu_time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=sdpa_mask, scale=1.0))
-        bound_ms, bound_by = attention_bound(B, H, L, S, D, masked)
-        row = dict(what=what, B=B, H=H, L=L, S=S, D=D, masked=masked,
+        bound_ms, bound_by = attention_bound(B, H, L, S, D, masked, kernel)
+        row = dict(what=what, kernel=kernel, B=B, H=H, L=L, S=S, D=D, masked=masked,
                    max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         results[(what, B)] = row
-        phase("kernel_check", kernel="flash_attention", **row)
+        phase("kernel_check", **row)
 
-    # A batch element with no valid key must come out as exact zeros.
-    B, L, S, D = 2, 410, 410, 15
+    def held(what, out, ref):
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if not err <= KERNEL_ATOL:
+            raise AssertionError(f"{what}: kernel vs plain {err} > {KERNEL_ATOL}")
+        return err
+
+    # A batch element with no valid key must come out as exact zeros, on
+    # both kernels.
+    for L, S in ((410, 410), (1, VERTICES)):
+        B, D = 2, 15
+        q = torch.randn(B, HEADS, L, D, device="cuda", generator=gen)
+        k = torch.randn(B, HEADS, S, D, device="cuda", generator=gen)
+        v = torch.randn(B, HEADS, S, D, device="cuda", generator=gen)
+        mask = torch.ones(B, S, dtype=torch.bool, device="cuda")
+        mask[0] = False
+        out = fa.flash_attention(q, k, v, mask)
+        err = held("fully masked", out, fa.flash_attention_reference(q, k, v, mask))
+        if not bool((out[0] == 0).all()) or not bool((out[1] != 0).any()):
+            raise AssertionError(f"L={L}: fully masked batch element is not exactly zero")
+        phase("kernel_check_fully_masked", kernel=fa.kernel_for(L), L=L, S=S,
+              max_abs_err=err, masked_element_exact_zero=True)
+        results[("fully_masked", L)] = dict(kernel=fa.kernel_for(L), max_abs_err=err)
+
+    # The split kernel's first split (keys 0-255 of 2048) wholly masked.
+    B, L, S, D = 2, 1, VERTICES, 15
     q = torch.randn(B, HEADS, L, D, device="cuda", generator=gen)
     k = torch.randn(B, HEADS, S, D, device="cuda", generator=gen)
     v = torch.randn(B, HEADS, S, D, device="cuda", generator=gen)
-    mask = torch.ones(B, S, dtype=torch.bool, device="cuda")
-    mask[0] = False
-    out = fa.flash_attention(q, k, v, mask)
-    ref = fa.flash_attention_reference(q, k, v, mask)
-    torch.cuda.synchronize()
-    if not bool((out[0] == 0).all()) or not bool((out[1] != 0).any()):
-        raise AssertionError("fully masked batch element is not exactly zero")
-    err = (out - ref).abs().max().item()
-    if not err <= KERNEL_ATOL:
-        raise AssertionError(f"fully masked case: kernel vs plain {err}")
-    phase("kernel_check_fully_masked", kernel="flash_attention", max_abs_err=err,
-          masked_element_exact_zero=True)
+    mask = torch.rand(B, S, device="cuda", generator=gen) > 0.2
+    mask[:, :256] = False
+    err = held("masked split", fa.flash_attention(q, k, v, mask),
+               fa.flash_attention_reference(q, k, v, mask))
+    phase("kernel_check_masked_split", kernel=fa.kernel_for(L), L=L, S=S, max_abs_err=err)
+    results[("masked_split", L)] = dict(kernel=fa.kernel_for(L), max_abs_err=err)
+
+    # (B, T, H, D) tensors as .transpose(1, 2) views, as multi_head_attention
+    # passes them: no copy in, the output in the caller's layout.
+    for what, L, S in (("denoiser_cross", 1, VERTICES), ("encoder_cross", 3, VERTICES),
+                       ("self", 410, 410)):
+        B, D = 2, 15
+        q = torch.randn(B, L, HEADS, D, device="cuda", generator=gen) * D**-0.5
+        k = torch.randn(B, S, HEADS, D, device="cuda", generator=gen)
+        v = torch.randn(B, S, HEADS, D, device="cuda", generator=gen)
+        mask = torch.rand(B, S, device="cuda", generator=gen) > 0.2
+        views = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        out = fa.flash_attention(*views, mask)
+        err = held(f"strided {what}", out, fa.flash_attention_reference(
+            *(t.contiguous() for t in views), mask))
+        if not out.transpose(1, 2).is_contiguous():
+            raise AssertionError(f"strided {what}: output not in the (B, L, H, D) layout")
+        phase("kernel_check_strided", what=what, kernel=fa.kernel_for(L), B=B, L=L,
+              S=S, D=D, max_abs_err=err, output_in_caller_layout=True)
+        results[("strided", what)] = dict(kernel=fa.kernel_for(L), max_abs_err=err)
     return results
+
+
+def measure_threshold():
+    """Both kernels at L = 1..8 queries (B=1, H=8, D=15, masked) over the
+    path's key counts: which serves few queries faster."""
+    import torch
+
+    from nvblox_mindmap_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for S in (410, VERTICES):
+        for L in (1, 2, 4, 6, 8):
+            q = torch.randn(1, HEADS, L, 15, device="cuda", generator=gen) * 15**-0.5
+            k = torch.randn(1, HEADS, S, 15, device="cuda", generator=gen)
+            v = torch.randn(1, HEADS, S, 15, device="cuda", generator=gen)
+            mask = torch.rand(1, S, device="cuda", generator=gen) > 0.2
+            ms = {name: gpu_time_ms(lambda name=name: fa.run_kernel(name, q, k, v, mask))
+                  for name in fa.KERNELS}
+            phase("threshold", L=L, S=S, D=15, **{f"{n}_ms": t for n, t in ms.items()})
 
 
 def make_batch(B, seed=0):
@@ -255,7 +328,7 @@ def run_slice():
         ("ddim10_b1", 1, convert_diffusion_scheduler(10), 40),
         ("ddim10_b8", 8, convert_diffusion_scheduler(10), 40),
     ]
-    launches_total = 0
+    launches_total = dict.fromkeys(fa.KERNELS, 0)
     results = {}
     for name, B, sampler, reps in runs:
         prepared = prepare_inputs(make_batch(B), bounds, cfg, device="cuda")
@@ -289,13 +362,17 @@ def run_slice():
         if rest:
             raise AssertionError(f"unexpected sampler settings {rest}")
         fa.flash_attention.launches = 0
+        fa.KERNEL_LAUNCHES.update(dict.fromkeys(fa.KERNELS, 0))
         traj, head_yaw, weights = predict()
         torch.cuda.synchronize()
         launches = fa.flash_attention.launches
-        expected = 3 + 10 * T
-        if launches != expected:
-            raise AssertionError(f"{name}: {launches} kernel launches, expected {expected}")
-        launches_total += launches
+        by_kernel = dict(fa.KERNEL_LAUNCHES)
+        expected = {"flash_attention_split": 3 + 2 * T, "flash_attention_tile": 8 * T}
+        if launches != 3 + 10 * T or by_kernel != expected:
+            raise AssertionError(f"{name}: {launches} flash calls {by_kernel}, expected "
+                                 f"{3 + 10 * T} {expected}")
+        for kernel, n in by_kernel.items():
+            launches_total[kernel] += n
         if weights is not None:
             raise AssertionError("flash path materialized attention weights")
         if traj.shape != (B, 1, 1, 8) or not bool(torch.isfinite(traj).all()):
@@ -319,7 +396,7 @@ def run_slice():
         set_default_attention_impl("flash")
         p50_flash, q1_flash, q3_flash = quartiles(times["flash"])
         p50_eager, q1_eager, q3_eager = quartiles(times["eager"])
-        results[name] = dict(B=B, steps=T, launches=launches,
+        results[name] = dict(B=B, steps=T, launches=launches, launches_by_kernel=by_kernel,
                              denoiser_max_abs_err_vs_eager=eps_err,
                              max_abs_err_vs_eager=err, reps=reps,
                              p50_ms=p50_flash, q1_ms=q1_flash, q3_ms=q3_flash,
@@ -371,23 +448,34 @@ def main() -> int:
                  if "registers" in line])
 
     checks = check_kernels()
+    measure_threshold()
     slice_results, launches = run_slice()
 
-    main_shape = checks[("self", 1)]
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "nvblox_mindmap_torch/csrc/flash_attention.cu",
-        "replaces": "nvblox_mindmap_tpu/ops/flash_attention.py:43",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in checks.values()),
-        "ms": main_shape["kernel_ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"],
-        "shape": "self-attention B=1 H=8 L=S=410 D=15 masked",
-    }]}), flush=True)
+    # Each kernel with the main-path shape it serves most.
+    main_shapes = {
+        "flash_attention_split": (("denoiser_cross", 1),
+                                  "denoiser cross-attention B=1 H=8 L=1 S=2048 D=15 masked"),
+        "flash_attention_tile": (("self", 1), "self-attention B=1 H=8 L=S=410 D=15 masked"),
+    }
+    entries = []
+    for kernel, (key, shape) in main_shapes.items():
+        row = checks[key]
+        entries.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": f"nvblox_mindmap_torch/csrc/{kernel}.cu",
+            "replaces": "nvblox_mindmap_tpu/ops/flash_attention.py:43",
+            "launches": launches[kernel],
+            "max_abs_err": max(r["max_abs_err"] for r in checks.values()
+                               if r["kernel"] == kernel),
+            "ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "shape": shape,
+        })
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

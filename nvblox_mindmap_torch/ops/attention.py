@@ -106,11 +106,14 @@ def multi_head_attention(
         and not has_memory
         and not return_kv
     ):
+        # The kernels read the (B, H, T, D) views through their strides and
+        # write an output laid out like q, so on the card neither the inputs
+        # nor the (B, L, E) result is copied.
         inclusion = None if key_padding_mask is None else ~key_padding_mask
         out = fa.flash_attention(
-            qh.transpose(1, 2).contiguous(),
-            kh.transpose(1, 2).contiguous(),
-            vh.transpose(1, 2).contiguous(),
+            qh.transpose(1, 2),
+            kh.transpose(1, 2),
+            vh.transpose(1, 2),
             key_padding_mask=inclusion,
         )
         return out.transpose(1, 2).reshape(B, L, E), None

@@ -1,29 +1,46 @@
-"""Flash attention: the Hopper CUDA kernel, its plain version and its wrapper.
+"""Flash attention: the two Hopper CUDA kernels, their plain version and the
+wrapper that picks between them.
 
-The kernel (``csrc/flash_attention.cu``) replaces the JAX package's Pallas
-TPU kernel (``nvblox_mindmap_tpu/ops/flash_attention.py``, ``_flash_kernel``
-called from ``flash_attention``): forward-only streaming-softmax attention
-over pre-scaled q (B, H, L, D) and k, v (B, H, S, D) with an optional (B, S)
+The kernels replace the JAX package's Pallas TPU kernel
+(``nvblox_mindmap_tpu/ops/flash_attention.py``, ``_flash_kernel`` called
+from ``flash_attention``): forward-only streaming-softmax attention over
+pre-scaled q (B, H, L, D) and k, v (B, H, S, D) with an optional (B, S)
 inclusion key mask (True = valid key). Rows with no valid key come out as
-exact zeros. The source's header says what bounds it on the H100 and what
-its design does about that; the TPU-only padding of D to 128 and of L, S to
-512-blocks is gone (the kernel pads D to 16, 32 or 64 in registers and masks
-the ragged key tile itself).
+exact zeros. Both compute that same function:
+
+- ``flash_attention_split`` (``csrc/flash_attention_split.cu``), for
+  L <= ``SPLIT_MAX_L`` queries: one launch whose thread block cluster splits
+  the keys and merges the partial softmax states in distributed shared
+  memory;
+- ``flash_attention_tile`` (``csrc/flash_attention_tile.cu``), for more
+  queries: 32-query tiles on the tensor cores (``mma.sync`` in 3xTF32).
+
+Each source's header says what bounds it on the H100 and what its design
+does about that. The kernels read q, k, v and write the output through their
+batch, head and sequence strides, so a caller holding (B, L, H, D) tensors
+passes ``.transpose(1, 2)`` views and copies nothing; only the last dim must
+be unit-stride. The output has q's memory layout (``torch.empty_like``).
 
 ``flash_attention`` picks by device: a CPU tensor goes to
 ``flash_attention_reference``, the same function in plain torch; a CUDA
-tensor launches the kernel or raises. There is no fallback between the two.
-``flash_attention.launches`` counts kernel launches.
+tensor launches one kernel or raises. There is no fallback between the two.
+``flash_attention.launches`` counts calls that launched a kernel;
+``KERNEL_LAUNCHES`` counts the launches of each kernel.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
 NEG_INF = -1e9
 MAX_HEAD_DIM = 64
+# The split kernel serves up to this many queries (PERF.md has the
+# measurement behind the choice).
+SPLIT_MAX_L = 8
+KERNELS = ("flash_attention_split", "flash_attention_tile")
+KERNEL_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
 def flash_attention_reference(
@@ -32,7 +49,7 @@ def flash_attention_reference(
     v: torch.Tensor,
     key_padding_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain torch version of the kernel, with the same exact-zero rule.
+    """Plain torch version of both kernels, with the same exact-zero rule.
 
     Args:
         q: (B, H, L, D) queries, already scaled by 1/sqrt(D_head).
@@ -56,21 +73,30 @@ def flash_attention_reference(
     return out / torch.where(l > 0, l, torch.ones_like(l))
 
 
-_LIB = None
+def kernel_for(num_queries: int) -> str:
+    """The kernel that serves a call with this many queries."""
+    return KERNELS[0] if num_queries <= SPLIT_MAX_L else KERNELS[1]
 
 
-def _library():
+_LIB: Optional[Dict[str, Callable[..., int]]] = None
+
+
+def _library() -> Dict[str, Callable[..., int]]:
+    """Each kernel's C entry point, built and loaded at first use."""
     global _LIB
     if _LIB is None:
         from nvblox_mindmap_torch.ops import _build
 
-        lib = _build.load("flash_attention")
-        fn = lib.flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p
-        ]
-        fn.restype = ctypes.c_int
-        _LIB = lib
+        fns = {}
+        for name in KERNELS:
+            fn = getattr(_build.load(name), name + "_fwd")
+            # q, k, v, mask, o; B, H, L, S, D; the 64-bit batch, head and
+            # sequence strides of q, k, v, o; the stream.
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                           + [ctypes.c_int64] * 12 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+        _LIB = fns
     return _LIB
 
 
@@ -94,35 +120,38 @@ def _check(q, k, v, key_padding_mask):
         raise ValueError("flash_attention inputs must share one device")
 
 
-def flash_attention(
+def run_kernel(
+    name: str,
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     key_padding_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Fused attention over pre-scaled q/k/v (see module docstring).
+    """Launch kernel ``name`` on CUDA tensors and return its output.
 
-    CPU tensors run ``flash_attention_reference``; CUDA tensors run the
-    kernel, which takes contiguous fp32 q/k/v, a contiguous bool mask and
-    head dims up to 64, and raises on anything else.
+    Takes fp32 q, k, v with a unit-stride last dim and any other strides, a
+    contiguous bool mask and head dims up to 64 (the split kernel: at most
+    ``SPLIT_MAX_L`` queries), and raises on anything else.
     """
     _check(q, k, v, key_padding_mask)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, key_padding_mask)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
-    tensors = [q, k, v]
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("the flash attention kernel takes fp32 q, k, v")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the flash attention kernel takes contiguous q, k, v")
+        raise ValueError(f"the flash attention kernels run on cuda, not {q.device}")
+    if any(t.dtype != torch.float32 for t in (q, k, v)):
+        raise TypeError("the flash attention kernels take fp32 q, k, v")
+    if any(t.stride(-1) != 1 and t.shape[-1] > 1 for t in (q, k, v)):
+        raise ValueError(
+            "the flash attention kernels take q, k, v whose last dim is "
+            "unit-stride"
+        )
     B, H, L, D = q.shape
     S = k.shape[2]
     if D > MAX_HEAD_DIM:
         raise ValueError(
-            f"the flash attention kernel takes head dims up to {MAX_HEAD_DIM}, "
+            f"the flash attention kernels take head dims up to {MAX_HEAD_DIM}, "
             f"got {D}"
         )
+    if name == KERNELS[0] and L > SPLIT_MAX_L:
+        raise ValueError(f"{name} takes up to {SPLIT_MAX_L} queries, got {L}")
     mask_ptr = None
     if key_padding_mask is not None:
         if key_padding_mask.dtype != torch.bool:
@@ -133,16 +162,39 @@ def flash_attention(
     out = torch.empty_like(q)
     if L == 0:
         return out
-    lib = _library()
+    fn = _library()[name]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
-            out.data_ptr(), B, H, L, S, D, stream,
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
+            B, H, L, S, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
-    flash_attention.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    KERNEL_LAUNCHES[name] += 1
+    return out
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_padding_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Fused attention over pre-scaled q/k/v (see module docstring).
+
+    CPU tensors run ``flash_attention_reference``; CUDA tensors run the
+    kernel that ``kernel_for`` names for their number of queries (see
+    ``run_kernel`` for what it takes).
+    """
+    _check(q, k, v, key_padding_mask)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, key_padding_mask)
+    out = run_kernel(kernel_for(q.shape[2]), q, k, v, key_padding_mask)
+    if q.shape[2] > 0:
+        flash_attention.launches += 1
     return out
 
 

@@ -135,6 +135,35 @@ def test_flash_impl_keeps_eager_for_weights_and_variants():
             torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def test_flash_impl_on_strided_views_matches_eager(monkeypatch):
+    """q, k, v sliced from one fused projection (strided (B, T, E) views):
+    the flash branch hands the kernel (B, H, T, D) views with a unit-stride
+    last dim, copies none of them, and matches the eager path."""
+    rng = np.random.default_rng(9)
+    qkv = torch.from_numpy(rng.normal(size=(B, S, 3 * E)).astype(np.float32))
+    q, k, v = qkv[:, :L, :E], qkv[..., E:2 * E], qkv[..., 2 * E:]
+    mask = torch.from_numpy(rng.uniform(size=(B, S)) > 0.6)
+    mask[:, 0] = False  # every row keeps a valid key
+    seen = []
+    real = fa.flash_attention
+
+    def spy(*args, **kwargs):
+        seen.extend(args[:3])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(fa, "flash_attention", spy)
+    eager, _ = tattn.multi_head_attention(q, k, v, H, key_padding_mask=mask,
+                                          need_weights=False, impl="eager")
+    flash, w = tattn.multi_head_attention(q, k, v, H, key_padding_mask=mask,
+                                          need_weights=False, impl="flash")
+    assert w is None and len(seen) == 3
+    for t in seen[1:]:  # k and v reach the kernel as views of qkv
+        assert t.untyped_storage().data_ptr() == qkv.untyped_storage().data_ptr()
+    assert all(t.stride(-1) == 1 and not t.is_contiguous() for t in seen)
+    assert flash.shape == (B, L, E)
+    torch.testing.assert_close(flash, eager, rtol=0, atol=ATOL)
+
+
 def test_default_impl_switch():
     assert tattn.get_default_attention_impl() == "eager"
     tattn.set_default_attention_impl("flash")

@@ -1,4 +1,4 @@
-"""Torch port on the card: the CUDA kernel against its plain version.
+"""Torch port on the card: the CUDA kernels against their plain version.
 
 Every test here needs an NVIDIA GPU and nvcc, and skips elsewhere. This file
 imports neither JAX nor the JAX package, so it runs on a machine without
@@ -7,8 +7,9 @@ them; there, skip the JAX-importing ``tests/conftest.py``:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Tolerance: fp32 atol 2e-5, kernel vs plain version (the same function with
-another summation order); model outputs atol 5e-3 flash vs eager, the JAX
-package's own swap-test bound.
+another summation order; the tile kernel's 3xTF32 products keep fp32
+accuracy); model outputs atol 5e-3 flash vs eager, the JAX package's own
+swap-test bound.
 """
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ from nvblox_mindmap_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 ATOL = 2e-5
+SPLIT, TILE = fa.KERNELS
 
 
 @pytest.fixture
@@ -27,35 +29,107 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize(
-    "B,H,L,S,D,masked",
-    [
-        (1, 8, 3, 2048, 15, False),
-        (8, 8, 1, 2048, 15, True),
-        (8, 8, 410, 410, 15, True),
-        (2, 8, 129, 129, 9, True),
-        (2, 3, 100, 130, 33, True),  # the D <= 64 template
-        (1, 12, 70, 200, 32, True),
-        (1, 12, 65, 197, 64, True),
-        (1, 1, 1, 1, 1, False),
-    ],
-)
-def test_kernel_matches_plain_version(gen, B, H, L, S, D, masked):
+def _inputs(gen, B, H, L, S, D, masked):
     q = torch.randn(B, H, L, D, device="cuda", generator=gen) * D**-0.5
     k = torch.randn(B, H, S, D, device="cuda", generator=gen)
     v = torch.randn(B, H, S, D, device="cuda", generator=gen)
     mask = None
     if masked:
         mask = torch.rand(B, S, device="cuda", generator=gen) > 0.3
-        mask[0] = False
+        mask[0] = False  # a fully masked batch element
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize(
+    "B,H,L,S,D,masked",
+    [
+        # Path shapes: encoder / denoiser cross-attention and self-attention.
+        (1, 8, 3, 2048, 15, False),
+        (8, 8, 1, 2048, 15, True),
+        (8, 8, 410, 410, 15, True),
+        (2, 8, 129, 129, 9, True),
+        # L around the split kernel's limit of 8.
+        (2, 8, 2, 2048, 15, True),
+        (2, 8, 6, 2048, 15, True),
+        (2, 8, 8, 2048, 15, True),
+        (2, 8, 9, 2048, 15, True),
+        # S below one split, not a multiple of the split size, S = 1.
+        (2, 4, 3, 100, 15, True),
+        (2, 4, 2, 1000, 15, True),
+        (2, 4, 6, 2047, 9, True),
+        (2, 4, 1, 1, 15, False),
+        (2, 4, 20, 1, 15, False),
+        # Head dims 9, 15, 32, 64 on both kernels.
+        (2, 3, 5, 700, 9, True),
+        (2, 3, 100, 130, 33, True),
+        (1, 12, 70, 200, 32, True),
+        (1, 12, 4, 600, 32, True),
+        (1, 12, 65, 197, 64, True),
+        (1, 12, 8, 1500, 64, True),
+        (1, 1, 1, 1, 1, False),
+        # Grids of 2+ blocks per SM: the tile kernel's one-pair blocks.
+        (8, 12, 100, 300, 64, True),
+        (8, 12, 70, 200, 32, True),
+    ],
+)
+def test_kernel_matches_plain_version(gen, B, H, L, S, D, masked):
+    q, k, v, mask = _inputs(gen, B, H, L, S, D, masked)
+    name = fa.kernel_for(L)
     before = fa.flash_attention.launches
+    before_kernel = fa.KERNEL_LAUNCHES[name]
     out = fa.flash_attention(q, k, v, mask)
     ref = fa.flash_attention_reference(q, k, v, mask)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
+    assert fa.KERNEL_LAUNCHES[name] == before_kernel + 1
     torch.testing.assert_close(out, ref, rtol=0, atol=ATOL)
     if masked:
         assert bool((out[0] == 0).all())
+
+
+@pytest.mark.parametrize("name", [SPLIT, TILE])
+@pytest.mark.parametrize("D", [9, 15, 32, 64])
+@pytest.mark.parametrize("L,S", [(1, 333), (8, 2048), (3, 64)])
+def test_each_kernel_at_every_head_dim(gen, name, D, L, S):
+    q, k, v, mask = _inputs(gen, 2, 3, L, S, D, masked=True)
+    out = fa.run_kernel(name, q, k, v, mask)
+    ref = fa.flash_attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=ATOL)
+    assert bool((out[0] == 0).all())
+
+
+@pytest.mark.parametrize("L", [3, 410])
+def test_one_split_wholly_masked(gen, L):
+    """Keys 0-255 (the first split at S = 2048) masked in every batch
+    element; the other splits carry the valid keys."""
+    q, k, v, _ = _inputs(gen, 2, 8, L, 2048, 15, masked=False)
+    mask = torch.rand(2, 2048, device="cuda", generator=gen) > 0.3
+    mask[:, :256] = False
+    out = fa.flash_attention(q, k, v, mask)
+    ref = fa.flash_attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("L,S,D", [(1, 2048, 15), (6, 2048, 15), (410, 410, 15),
+                                   (20, 300, 64), (4, 256, 64)])
+def test_transposed_views_in_and_out(gen, L, S, D):
+    """(B, T, H, D) tensors passed as .transpose(1, 2) views: no copy, and
+    the output comes back in the caller's (B, L, H, D) layout."""
+    B, H = 2, 8
+    q = torch.randn(B, L, H, D, device="cuda", generator=gen) * D**-0.5
+    kv = torch.randn(B, S, 2, H, D, device="cuda", generator=gen)  # fused k/v
+    mask = torch.rand(B, S, device="cuda", generator=gen) > 0.3
+    qt, kt, vt = q.transpose(1, 2), kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    assert not kt.is_contiguous() and not vt.is_contiguous()
+    assert L == 1 or not qt.is_contiguous()
+    out = fa.flash_attention(qt, kt, vt, mask)
+    ref = fa.flash_attention_reference(qt.contiguous(), kt.contiguous(),
+                                       vt.contiguous(), mask)
+    torch.cuda.synchronize()
+    assert out.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(out, ref, rtol=0, atol=ATOL)
 
 
 def test_wrapper_raises_instead_of_falling_back(gen):
@@ -65,11 +139,14 @@ def test_wrapper_raises_instead_of_falling_back(gen):
     with pytest.raises(ValueError, match="head dims"):
         w = torch.zeros(1, 1, 2, 65, device="cuda")
         fa.flash_attention(w, w, w)
-    with pytest.raises(ValueError, match="contiguous"):
-        t = torch.zeros(1, 2, 3, 8, device="cuda").transpose(1, 2)
+    with pytest.raises(ValueError, match="unit-stride"):
+        t = torch.zeros(1, 2, 3, 16, device="cuda")[..., ::2]
         fa.flash_attention(t, t, t)
     with pytest.raises(ValueError, match="one device"):
         fa.flash_attention(z, z.cpu(), z)
+    with pytest.raises(ValueError, match="queries"):
+        w = torch.zeros(1, 1, 9, 8, device="cuda")
+        fa.run_kernel(SPLIT, w, w, w)
 
 
 def test_model_flash_path_matches_eager_on_cuda(gen):
@@ -110,9 +187,12 @@ def test_model_flash_path_matches_eager_on_cuda(gen):
         eager = sample_trajectory(model, prepared, bounds, **kw)
         apply_inference_settings(convert_to_flash_attention())
         before = fa.flash_attention.launches
+        before_split = fa.KERNEL_LAUNCHES[SPLIT]
         flash = sample_trajectory(model, prepared, bounds, **kw)
         torch.cuda.synchronize()
         assert fa.flash_attention.launches - before == 3 + 10 * 10
+        # Encoder cross (3) and denoiser cross (2 per step) have L <= 8.
+        assert fa.KERNEL_LAUNCHES[SPLIT] - before_split == 3 + 2 * 10
     finally:
         set_default_attention_impl("eager")
     assert flash[2] is None and eager[2] is not None

@@ -1,9 +1,11 @@
 """Torch port: flash attention's plain version vs the JAX Pallas kernel.
 
 The JAX kernel runs in interpret mode on the CPU, as its own tests run it.
-On the CPU the port's wrapper takes its plain version; the CUDA kernel is
-checked against that plain version on the card by
-``tests/test_torch_cuda.py``. Inputs come from numpy seeds.
+On the CPU the port's wrapper takes its plain version; the two CUDA kernels
+are checked against that plain version on the card by
+``tests/test_torch_cuda.py``. The split kernel's arithmetic (partial softmax
+states over chunks of the keys, merged) is written out here in torch and
+held against the Pallas kernel too. Inputs come from numpy seeds.
 
 Tolerance: fp32 atol 2e-5, as the JAX package's flash tests use: both sides
 compute the same softmax in fp32, in different summation orders.
@@ -82,6 +84,79 @@ def test_cpu_tensors_take_the_plain_version_without_building():
                                rtol=0, atol=0)
     assert fa.flash_attention.launches == before
     assert fa._LIB is None  # nothing was compiled or loaded
+
+
+def _split_and_merge(q, k, v, mask, n_splits):
+    """The split kernel's rule on the plain version: each split of the keys
+    keeps a partial (m, l, acc), m starting at -1e9; the merge rescales them
+    to m = max m_i."""
+    S = k.shape[2]
+    per = -(-S // n_splits)
+    parts = []
+    for r in range(n_splits):
+        lo, hi = min(S, r * per), min(S, r * per + per)
+        valid = mask[:, None, None, lo:hi]
+        s = torch.einsum("bhld,bhsd->bhls", q, k[:, :, lo:hi])
+        s = torch.where(valid, s, fa.NEG_INF)
+        m = torch.full(s.shape[:-1] + (1,), fa.NEG_INF)
+        if hi > lo:
+            m = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m) * valid
+        parts.append((m, p.sum(-1, keepdim=True),
+                      torch.einsum("bhls,bhsd->bhld", p, v[:, :, lo:hi])))
+    m = torch.stack([m_i for m_i, _, _ in parts]).amax(0)
+    l = sum(l_i * torch.exp(m_i - m) for m_i, l_i, _ in parts)
+    acc = sum(a_i * torch.exp(m_i - m) for m_i, _, a_i in parts)
+    return acc / torch.where(l > 0, l, torch.ones_like(l))
+
+
+@pytest.mark.parametrize(
+    "L,S,D,n_splits",
+    [
+        (1, 300, 15, 3),
+        (3, 257, 9, 2),
+        (6, 512, 15, 8),
+        (8, 130, 32, 8),  # the last split is shorter
+        (2, 5, 9, 8),  # more splits than keys: some are empty
+    ],
+)
+def test_split_and_merge_matches_jax_kernel(L, S, D, n_splits):
+    """One split wholly masked, a fully masked batch element: the merge adds
+    such a split exactly 0 and the element comes out exactly 0."""
+    rng = np.random.default_rng(L * 100 + S)
+    B, H = 3, 2
+    q, k, v = _qkv(rng, B, H, L, S, D)
+    mask = rng.uniform(size=(B, S)) > 0.3
+    mask[:, : -(-S // n_splits)] = False  # the first split
+    mask[1] = False
+    out = _split_and_merge(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), torch.from_numpy(mask),
+                           n_splits).numpy()
+    ref = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               key_padding_mask=jnp.asarray(mask), block_q=32,
+                               block_k=64, interpret=True))
+    np.testing.assert_array_equal(out[1], 0.0)
+    assert np.abs(out[0]).max() > 0
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+
+
+def test_kernel_choice_by_number_of_queries():
+    assert [fa.kernel_for(L) for L in (1, 2, 3, 6, 8)] == ["flash_attention_split"] * 5
+    assert [fa.kernel_for(L) for L in (9, 129, 410)] == ["flash_attention_tile"] * 3
+    assert set(fa.KERNEL_LAUNCHES) == set(fa.KERNELS)
+
+
+def test_cpu_takes_transposed_views():
+    """(B, T, H, D) views, as multi_head_attention passes them."""
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.normal(size=(2, 7, 3, 9)).astype(np.float32))
+    kv = torch.from_numpy(rng.normal(size=(2, 10, 2, 3, 9)).astype(np.float32))
+    mask = torch.from_numpy(rng.uniform(size=(2, 10)) > 0.3)
+    views = (q.transpose(1, 2), kv[:, :, 0].transpose(1, 2),
+             kv[:, :, 1].transpose(1, 2))
+    out = fa.flash_attention(*views, mask)
+    ref = fa.flash_attention_reference(*(t.contiguous() for t in views), mask)
+    torch.testing.assert_close(out, ref, rtol=0, atol=ATOL)
 
 
 def test_wrapper_rejects_bad_shapes():
