@@ -8,20 +8,26 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    (one nvcc process per source, started together);
 3. holds each flash-attention kernel (``flash_attention_split`` for L <= 8
    queries, ``flash_attention_tile`` above) against their plain torch version
-   on the card at every shape the keypose path gives it, on (B, L, H, D)
-   transposed views, and with fully masked batch elements and a wholly
-   masked split; times kernel, plain version, one library call for the same
+   on the card at every shape the keypose paths give it, on (B, L, H, D)
+   transposed views, and with fully masked batch elements and wholly masked
+   key chunks; times kernel, plain version, one library call for the same
    function (a yardstick the port never calls) and the least time the card
    could take (``bound_ms``); and times both kernels at L = 1..8 (phase
    ``threshold``: the measurement behind the split kernel's limit);
-4. runs mesh-only keypose prediction at full width (embedding 120, 8 heads,
-   2048 vertices x 768-d features, seeded random weights) through the flash
-   kernels: DDPM-100 at batch 1, DDIM-10 at batch 1 and batch 8. Each run's
+4. times the RADIO ViT-B/16 backbone's forward (phase ``vit``) at the
+   flagship's 2 cameras x 512x512, for batch 1 and 8, beside its bound;
+5. runs keypose prediction at full width (embedding 120, 8 heads, seeded
+   random weights) through the flash kernels, on two paths: mesh-only
+   (2048 vertices x 768-d features) and the flagship ``rgbd_and_mesh`` of
+   the JAX package's ``bench.py`` (the same mesh plus 2 cameras at 512x512
+   through the RADIO ViT-B/16 geometry: 4096 context tokens). Each path
+   runs DDPM-100 at batch 1, DDIM-10 at batch 1 and batch 8. Each run's
    flash calls must be exactly 3 + 10*T: 3 + 2*T through the split kernel
    (encoder and denoiser cross-attention) and 8*T through the tile kernel
    (self-attention). Its trajectory must match the eager attention path on
-   the card with the same noise (atol 5e-3);
-5. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}`` as
+   the card with the same noise (atol 5e-3); FPS is timed at both context
+   sizes;
+6. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}`` as
    the last line.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -40,18 +46,29 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, TF32
-# on the tensor cores (dense), HBM3.
+# and bf16 on the tensor cores (dense), HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# Full-width mesh-only configuration (the JAX package's bench.py mesh cell).
+# Full-width configurations of the JAX package's bench.py: mesh-only and the
+# flagship rgbd_and_mesh (2 cameras at 512x512 through RADIO ViT-B/16, whose
+# 32x32 patch grid gives 1024 image tokens per camera).
 EMBEDDING = 120
 HEADS = 8
 VERTICES = 2048
 FEATURE_DIM = 768
 FPS_FACTOR = 5
+CAMERAS = 2
+IMAGE = 512
+PATCHES = 32
+CONTEXT = {"mesh": VERTICES, "rgbd_and_mesh": VERTICES + CAMERAS * PATCHES * PATCHES}
 WORKSPACE = [[-0.37, -0.75, -0.13], [0.95, 0.75, 0.65]]
+# Share of the flagship's image patches under a depth hole; the valid share
+# of its image tokens must come out within IMAGE_VALID_ATOL of 1 - HOLE_SHARE.
+HOLE_SHARE = 0.1
+IMAGE_VALID_ATOL = 0.05
 TRAJ_ATOL = 5e-3
 DENOISE_ATOL = 1e-4  # fp32 eps, kernel vs einsum/softmax summation order
 KERNEL_ATOL = 2e-5
@@ -106,28 +123,51 @@ def quartiles(times):
     return p50, q1, q3
 
 
-def profile(fn, wall_ms):
+BACKBONE_RANGE = "feature_extractor_forward"
+
+
+def profile(fn, wall_ms, backbone=None):
     """Kernel time of one ``fn()`` call from torch.profiler (device events
-    only), its share of ``wall_ms`` (the unprofiled p50), and the top kernels."""
+    only), its share of ``wall_ms`` (the unprofiled p50), and the top kernels.
+    With ``backbone`` (a module), the device time of the kernels its forward
+    launched, from a profiler range that hooks open and close around it."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile, record_function
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    hooks = []
+    if backbone is not None:
+        ranges = []
+        hooks = [
+            backbone.register_forward_pre_hook(
+                lambda *_: ranges.append(record_function(BACKBONE_RANGE).__enter__())),
+            backbone.register_forward_hook(lambda *_: ranges.pop().__exit__(None, None, None)),
+        ]
+    try:
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    events = prof.key_averages()
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
+               if e.device_type == DeviceType.CUDA and e.key != BACKBONE_RANGE]
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
     flash = [k for k in kernels if "flash_split_kernel" in k[0] or "flash_tile_kernel" in k[0]]
-    return dict(device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
-                device_launches=sum(k[2] for k in kernels),
-                flash_kernels_ms=sum(k[1] for k in flash),
-                flash_kernels_launches=sum(k[2] for k in flash),
-                top=[dict(name=n[:80], ms=ms, count=c) for n, ms, c in kernels[:8]])
+    out = dict(device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
+               device_launches=sum(k[2] for k in kernels),
+               flash_kernels_ms=sum(k[1] for k in flash),
+               flash_kernels_launches=sum(k[2] for k in flash),
+               top=[dict(name=n[:80], ms=ms, count=c) for n, ms, c in kernels[:10]])
+    if backbone is not None:
+        backbone_ms = sum(e.device_time_total / 1e3 for e in events
+                          if e.key == BACKBONE_RANGE and e.device_type == DeviceType.CPU)
+        out.update(backbone_device_ms=backbone_ms, backbone_share=backbone_ms / busy_ms)
+    return out
 
 
 def attention_bound(B, H, L, S, D, masked, kernel):
@@ -145,6 +185,27 @@ def attention_bound(B, H, L, S, D, masked, kernel):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def vit_bound(vit, images):
+    """(bound_ms, bound_by, flops) of one ViT forward over ``images`` images:
+    its matrix products (patch embedding, q/k/v/out and MLP projections,
+    attention logits and weighted sums) at the bf16 tensor-core peak, against
+    the images read, the fp32 parameters read once and the fp32 features
+    written at the HBM rate."""
+    width = vit.width
+    grid = vit.feature_image_size[0] * vit.feature_image_size[1]
+    tokens = grid + vit.num_prefix_tokens
+    hidden = vit.mlp1[0].out_features
+    per_layer = 2 * tokens * width * (4 * width + 2 * hidden) + 4 * tokens * tokens * width
+    patch_in = 3 * vit.patch_size**2
+    flops = images * (len(vit.attn) * per_layer + 2 * grid * patch_in * width)
+    nbytes = (4 * images * IMAGE * IMAGE * 3 + 4 * sum(p.numel() for p in vit.parameters())
+              + 4 * images * grid * width)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return bound + (flops,)
+
+
 def check_kernels():
     """Phase 3: flash kernels vs plain version at every path shape."""
     import torch
@@ -155,11 +216,16 @@ def check_kernels():
     # (what, B, H, L, S, D, masked). D=15: full width (E=120, 8 heads):
     # encoder gripper cross-attention (L=3 arm, 6 humanoid) over 2048
     # vertices, denoiser cross-attention (L=1 arm, 2 humanoid) with the
-    # context mask, self-attention over 1 + 409 FPS tokens. D=9: the
+    # context mask, self-attention over 1 + 409 FPS tokens; the flagship's
+    # over its 4096 context tokens and 1 + 819 FPS tokens. D=9: the
     # committed fixtures (E=72): 512 vertices, 128 FPS tokens.
+    flagship_self = 1 + CONTEXT["rgbd_and_mesh"] // FPS_FACTOR
     shapes = []
     for B in (1, 8):
         shapes += [
+            ("flagship_encoder_cross", B, HEADS, 3, CONTEXT["rgbd_and_mesh"], 15, False),
+            ("flagship_denoiser_cross", B, HEADS, 1, CONTEXT["rgbd_and_mesh"], 15, True),
+            ("flagship_self", B, HEADS, flagship_self, flagship_self, 15, True),
             ("encoder_cross", B, HEADS, 3, VERTICES, 15, False),
             ("encoder_cross_humanoid", B, HEADS, 6, VERTICES, 15, False),
             ("denoiser_cross", B, HEADS, 1, VERTICES, 15, True),
@@ -222,22 +288,28 @@ def check_kernels():
               max_abs_err=err, masked_element_exact_zero=True)
         results[("fully_masked", L)] = dict(kernel=fa.kernel_for(L), max_abs_err=err)
 
-    # The split kernel's first split (keys 0-255 of 2048) wholly masked.
-    B, L, S, D = 2, 1, VERTICES, 15
-    q = torch.randn(B, HEADS, L, D, device="cuda", generator=gen)
-    k = torch.randn(B, HEADS, S, D, device="cuda", generator=gen)
-    v = torch.randn(B, HEADS, S, D, device="cuda", generator=gen)
-    mask = torch.rand(B, S, device="cuda", generator=gen) > 0.2
-    mask[:, :256] = False
-    err = held("masked split", fa.flash_attention(q, k, v, mask),
-               fa.flash_attention_reference(q, k, v, mask))
-    phase("kernel_check_masked_split", kernel=fa.kernel_for(L), L=L, S=S, max_abs_err=err)
-    results[("masked_split", L)] = dict(kernel=fa.kernel_for(L), max_abs_err=err)
+    # Wholly masked key chunks of the split kernel: at S = 2048 the first
+    # block's one chunk (keys 0-255); at S = 4096, where each block walks
+    # two chunks of 256, block 0's first chunk and block 1's second.
+    for S, masked_ranges in ((VERTICES, ((0, 256),)), (CONTEXT["rgbd_and_mesh"],
+                                                       ((0, 256), (768, 1024)))):
+        B, L, D = 2, 1, 15
+        q = torch.randn(B, HEADS, L, D, device="cuda", generator=gen)
+        k = torch.randn(B, HEADS, S, D, device="cuda", generator=gen)
+        v = torch.randn(B, HEADS, S, D, device="cuda", generator=gen)
+        mask = torch.rand(B, S, device="cuda", generator=gen) > 0.2
+        for lo, hi in masked_ranges:
+            mask[:, lo:hi] = False
+        err = held(f"masked split S={S}", fa.flash_attention(q, k, v, mask),
+                   fa.flash_attention_reference(q, k, v, mask))
+        phase("kernel_check_masked_split", kernel=fa.kernel_for(L), L=L, S=S,
+              masked_keys=masked_ranges, max_abs_err=err)
+        results[("masked_split", S)] = dict(kernel=fa.kernel_for(L), max_abs_err=err)
 
     # (B, T, H, D) tensors as .transpose(1, 2) views, as multi_head_attention
     # passes them: no copy in, the output in the caller's layout.
     for what, L, S in (("denoiser_cross", 1, VERTICES), ("encoder_cross", 3, VERTICES),
-                       ("self", 410, 410)):
+                       ("self", 410, 410), ("flagship_self", flagship_self, flagship_self)):
         B, D = 2, 15
         q = torch.randn(B, L, HEADS, D, device="cuda", generator=gen) * D**-0.5
         k = torch.randn(B, S, HEADS, D, device="cuda", generator=gen)
@@ -274,7 +346,13 @@ def measure_threshold():
             phase("threshold", L=L, S=S, D=15, **{f"{n}_ms": t for n, t in ms.items()})
 
 
-def make_batch(B, seed=0):
+def make_batch(B, data_type, seed=0):
+    """The bench.py inputs: gripper history, mesh and, for rgbd_and_mesh,
+    2 cameras of RGB-D at 512x512. Unlike bench.py's, the points lie inside
+    the workspace (bench.py draws z below its floor, so about a fifth of
+    the pixels fail the bounds check and the 16x16 AND-pool masks every
+    image token); depth holes invalidate ``HOLE_SHARE`` of the 16x16 pixel
+    blocks under the patches."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -286,16 +364,67 @@ def make_batch(B, seed=0):
         close = rng.integers(0, 2, size=shape + (1,)).astype(np.float64)
         return np.concatenate([pos, quat, close], -1).astype(np.float32)
 
-    return {
+    batch = {
         "gripper_history": pose8((B, 3, 1)),
         "vertices": rng.uniform(-0.3, 0.6, size=(B, VERTICES, 3)).astype(np.float32),
         "vertex_features": rng.normal(size=(B, VERTICES, FEATURE_DIM)).astype(np.float32),
         "vertices_valid_mask": np.ones((B, VERTICES), dtype=bool),
     }
+    if data_type == "rgbd_and_mesh":
+        shape = (B, CAMERAS, IMAGE, IMAGE)
+        lo, hi = np.asarray(WORKSPACE)
+        batch["rgbs"] = rng.uniform(0, 1, size=shape + (3,)).astype(np.float32)
+        batch["pcds"] = rng.uniform(lo, hi, size=shape + (3,)).astype(np.float32)
+        holes = rng.uniform(size=(B, CAMERAS, PATCHES, PATCHES)) < HOLE_SHARE
+        block = IMAGE // PATCHES
+        batch["pcd_valid_mask"] = ~holes.repeat(block, axis=2).repeat(block, axis=3)
+    return batch
 
 
-def run_slice():
-    """Phase 4: full-width mesh keypose prediction through the kernel."""
+def model_config(data_type):
+    from nvblox_mindmap_torch.models.diffuser_actor import DiffuserActorConfig
+
+    return DiffuserActorConfig(
+        embedding_dim=EMBEDDING, num_attn_heads=HEADS, data_type=data_type,
+        feature_type="radio_v25_b" if data_type == "rgbd_and_mesh" else "rgb",
+        feature_image_size=(PATCHES, PATCHES), vertex_feature_dim=FEATURE_DIM,
+        diffusion_timesteps=100, fps_subsampling_factor=FPS_FACTOR,
+    )
+
+
+def measure_vit():
+    """Phase 4: the RADIO ViT-B/16 forward (random weights) over 2 cameras
+    at 512x512, batch 1 and 8: device time (CUDA-graph replay), host-clock
+    time of an eager call, and the bound."""
+    import torch
+
+    from nvblox_mindmap_torch.models.feature_extractors import make_feature_extractor
+
+    torch.manual_seed(0)
+    vit = make_feature_extractor("radio_v25_b", (PATCHES, PATCHES)).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for B in (1, 8):
+        images = B * CAMERAS
+        rgb = torch.rand(images, IMAGE, IMAGE, 3, device="cuda", generator=gen)
+        feats = vit(rgb)
+        torch.cuda.synchronize()
+        if feats.shape != (images, PATCHES, PATCHES, vit.width) or feats.dtype != torch.float32:
+            raise AssertionError(f"ViT output {tuple(feats.shape)} {feats.dtype}")
+        if not bool(torch.isfinite(feats).all()):
+            raise AssertionError("ViT output is not finite")
+        device_ms = gpu_time_ms(lambda: vit(rgb), reps=5, iters=3)
+        eager_ms, q1, q3 = quartiles([host_ms(lambda: vit(rgb)) for _ in range(10)])
+        bound_ms, bound_by, flops = vit_bound(vit, images)
+        phase("vit", B=B, images=images, tokens=PATCHES * PATCHES + vit.num_prefix_tokens,
+              device_ms=device_ms, host_p50_ms=eager_ms, host_q1_ms=q1, host_q3_ms=q3,
+              flops=flops, bound_ms=bound_ms, bound_by=bound_by,
+              bound_share=bound_ms / device_ms, tflops_per_s=flops / device_ms / 1e9)
+
+
+def run_slice(data_type, reps):
+    """Phase 5: full-width keypose prediction through the kernels, on the
+    mesh-only or the flagship path; ``reps`` is (DDPM-100, DDIM-10) host-clock
+    repetitions per attention impl. Returns each kernel's launches."""
     import numpy as np
     import torch
 
@@ -306,7 +435,6 @@ def run_slice():
     )
     from nvblox_mindmap_torch.models.diffuser_actor import (
         DiffuserActor,
-        DiffuserActorConfig,
         prepare_inputs,
         sample_trajectory,
     )
@@ -314,24 +442,22 @@ def run_slice():
     from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
     from nvblox_mindmap_torch.ops.fps import farthest_point_sampling
 
-    cfg = DiffuserActorConfig(
-        embedding_dim=EMBEDDING, num_attn_heads=HEADS, data_type="mesh",
-        vertex_feature_dim=FEATURE_DIM, diffusion_timesteps=100,
-        fps_subsampling_factor=FPS_FACTOR,
-    )
+    cfg = model_config(data_type)
     torch.manual_seed(0)
     model = DiffuserActor(cfg, device="cuda")
+    backbone = getattr(model.encoder, "feature_extractor", None)
     bounds = np.asarray(WORKSPACE, dtype=np.float32)
+    ddpm_reps, ddim_reps = reps
     runs = [
         ("ddpm100_b1", 1, dict(num_inference_steps=100, scheduler_kind="ddpm",
-                               stochastic=True), 8),
-        ("ddim10_b1", 1, convert_diffusion_scheduler(10), 40),
-        ("ddim10_b8", 8, convert_diffusion_scheduler(10), 40),
+                               stochastic=True), ddpm_reps),
+        ("ddim10_b1", 1, convert_diffusion_scheduler(10), ddim_reps),
+        ("ddim10_b8", 8, convert_diffusion_scheduler(10), ddim_reps),
     ]
     launches_total = dict.fromkeys(fa.KERNELS, 0)
     results = {}
     for name, B, sampler, reps in runs:
-        prepared = prepare_inputs(make_batch(B), bounds, cfg, device="cuda")
+        prepared = prepare_inputs(make_batch(B, data_type), bounds, cfg, device="cuda")
         T = sampler["num_inference_steps"]
         gen = torch.Generator(device="cuda").manual_seed(1)
         init_noise = torch.randn((B, 1, 1, 9), generator=gen, device="cuda")
@@ -345,6 +471,16 @@ def run_slice():
         set_default_attention_impl("eager")
         with torch.no_grad():
             fixed = model.encode_prepared(prepared)
+            shape = (fixed["context_feats"].shape[1], fixed["fps_feats"].shape[1])
+            if shape != (CONTEXT[data_type], CONTEXT[data_type] // FPS_FACTOR):
+                raise AssertionError(f"{name}: context and FPS tokens {shape}")
+            image_valid_share = None
+            if data_type == "rgbd_and_mesh":
+                image_tokens = fixed["context_mask"][:, :CAMERAS * PATCHES * PATCHES]
+                image_valid_share = image_tokens.float().mean().item()
+                if not abs(image_valid_share - (1 - HOLE_SHARE)) <= IMAGE_VALID_ATOL:
+                    raise AssertionError(f"{name}: {image_valid_share} of the image tokens "
+                                         f"valid, expected {1 - HOLE_SHARE}")
             t_first = torch.full((B,), 99.0, device="cuda")
             eps_eager = model.denoise(init_noise, t_first, fixed)[0]
             set_default_attention_impl("flash")
@@ -396,7 +532,10 @@ def run_slice():
         set_default_attention_impl("flash")
         p50_flash, q1_flash, q3_flash = quartiles(times["flash"])
         p50_eager, q1_eager, q3_eager = quartiles(times["eager"])
-        results[name] = dict(B=B, steps=T, launches=launches, launches_by_kernel=by_kernel,
+        results[name] = dict(B=B, steps=T, context_tokens=fixed["context_feats"].shape[1],
+                             self_attention_tokens=1 + fixed["fps_feats"].shape[1],
+                             image_valid_share=image_valid_share,
+                             launches=launches, launches_by_kernel=by_kernel,
                              denoiser_max_abs_err_vs_eager=eps_err,
                              max_abs_err_vs_eager=err, reps=reps,
                              p50_ms=p50_flash, q1_ms=q1_flash, q3_ms=q3_flash,
@@ -404,20 +543,20 @@ def run_slice():
                              q1_ms_eager_attention=q1_eager,
                              q3_ms_eager_attention=q3_eager)
         if name == "ddim10_b1":
-            results[name]["profile"] = profile(predict, p50_flash)
-        phase("slice", run=name, **results[name])
+            results[name]["profile"] = profile(predict, p50_flash, backbone)
+        phase("slice", path=data_type, run=name, **results[name])
 
-    # Feature-space FPS at the full-width shape: 409 samples of 2048 tokens.
+    # Feature-space FPS at the path's context size: N // 5 samples.
+    N = CONTEXT[data_type]
     for B in (1, 8):
-        feats = torch.randn(B, VERTICES, EMBEDDING, device="cuda")
-        k = VERTICES // FPS_FACTOR
+        feats = torch.randn(B, N, EMBEDDING, device="cuda")
+        k = N // FPS_FACTOR
         fps_ms, q1, q3 = quartiles([host_ms(lambda: farthest_point_sampling(feats, k))
-                                    for _ in range(20)])
-        phase("fps", B=B, N=VERTICES, C=EMBEDDING, samples=k, p50_ms=fps_ms,
+                                    for _ in range(10)])
+        phase("fps", path=data_type, B=B, N=N, C=EMBEDDING, samples=k, p50_ms=fps_ms,
               q1_ms=q1, q3_ms=q3)
-        results[f"fps_b{B}"] = fps_ms
     set_default_attention_impl("eager")
-    return results, launches_total
+    return launches_total
 
 
 def main() -> int:
@@ -449,16 +588,29 @@ def main() -> int:
 
     checks = check_kernels()
     measure_threshold()
-    slice_results, launches = run_slice()
+    measure_vit()
+    launches = {}
+    for data_type, reps in (("mesh", (6, 30)), ("rgbd_and_mesh", (8, 40))):
+        path_launches = run_slice(data_type, reps)
+        for kernel, n in path_launches.items():
+            launches[kernel] = launches.get(kernel, 0) + n
 
-    # Each kernel with the main-path shape it serves most.
+    # Each kernel at the flagship shape it serves most; beside it, its time
+    # at the mesh path's shape, which the line reported before the flagship
+    # was ported.
     main_shapes = {
-        "flash_attention_split": (("denoiser_cross", 1),
-                                  "denoiser cross-attention B=1 H=8 L=1 S=2048 D=15 masked"),
-        "flash_attention_tile": (("self", 1), "self-attention B=1 H=8 L=S=410 D=15 masked"),
+        "flash_attention_split": (("flagship_denoiser_cross", 1),
+                                  "flagship denoiser cross-attention B=1 H=8 L=1 S=4096 "
+                                  "D=15 masked", ("denoiser_cross", 1),
+                                  "mesh denoiser cross-attention B=1 H=8 L=1 S=2048 D=15 "
+                                  "masked"),
+        "flash_attention_tile": (("flagship_self", 1),
+                                 "flagship self-attention B=1 H=8 L=S=820 D=15 masked",
+                                 ("self", 1),
+                                 "mesh self-attention B=1 H=8 L=S=410 D=15 masked"),
     }
     entries = []
-    for kernel, (key, shape) in main_shapes.items():
+    for kernel, (key, shape, mesh_key, mesh_shape) in main_shapes.items():
         row = checks[key]
         entries.append({
             "name": kernel,
@@ -474,6 +626,8 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "shape": shape,
+            "mesh_path_ms": checks[mesh_key]["kernel_ms"],
+            "mesh_path_shape": mesh_shape,
         })
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

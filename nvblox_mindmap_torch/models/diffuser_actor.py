@@ -1,13 +1,15 @@
 """DiffuserActor: 3D denoising-diffusion keypose policy (torch).
 
-Port of the mesh-only inference path of
-``nvblox_mindmap_tpu/models/diffuser_actor.py``:
+Port of the non-language inference path of
+``nvblox_mindmap_tpu/models/diffuser_actor.py``, for every data type
+(``rgbd``, ``mesh``, ``rgbd_and_mesh``):
 
 - ``prepare_inputs``: split closedness from the history, optionally make the
-  history relative to the current pose, normalize positions to the workspace
-  and quaternions to continuous 6D;
-- ``DiffuserActor.encode``: mesh-vertex feature tokens, openness-conditioned
-  gripper-history queries, feature-space FPS;
+  history (and the RGB-D point clouds) relative to the current pose,
+  normalize positions, point clouds and vertices to the workspace and
+  quaternions to continuous 6D, scale uint8 RGB to [0, 1] on the device;
+- ``DiffuserActor.encode``: image tokens (frozen backbone, ``encode_images``)
+  then mesh-vertex tokens, gripper-history queries, feature-space FPS;
 - ``DiffuserActor.denoise``: one ``DiffusionHead`` pass;
 - ``sample_trajectory``: DDPM or DDIM reverse diffusion over the denoiser,
   then unnormalize (and restore the absolute pose in relative mode).
@@ -33,24 +35,27 @@ from nvblox_mindmap_torch.geometry.rotations import (
 )
 from nvblox_mindmap_torch.models.diffusion_head import DiffusionHead
 from nvblox_mindmap_torch.models.encoder import Encoder
+from nvblox_mindmap_torch.models.feature_extractors import FeatureExtractorType
 from nvblox_mindmap_torch.models.normalization import (
+    normalize_pointcloud,
     normalize_pos,
     normalize_trajectory,
     unnormalize_trajectory,
 )
 from nvblox_mindmap_torch.ops.schedulers import DiffusionSchedule, make_schedule
 
-IMAGE_SLICE = "the image-path slice (ViT backbone and encode_images)"
 LANGUAGE_SLICE = "the language slice (ParallelAttention)"
+DATA_TYPES = ("rgbd", "mesh", "rgbd_and_mesh")
 
 
 @dataclasses.dataclass(frozen=True)
 class DiffuserActorConfig:
-    """Static model configuration: the fields of the JAX config this slice uses.
+    """Static model configuration: the fields of the JAX config the port uses.
 
     ``vertex_feature_dim`` is the width of the mesh vertex features (flax
     infers it from the first batch; torch sizes ``reconstruction_encoder``
-    up front): 768 for RADIO features, 3 for the RGB fixtures.
+    up front): 768 for RADIO features, 3 for the RGB fixtures. ``data_type``
+    defaults to ``"mesh"`` here (the JAX default is ``"rgbd_and_mesh"``).
     """
 
     embedding_dim: int = 120
@@ -58,11 +63,18 @@ class DiffuserActorConfig:
     nhist: int = 3
     ngrippers: int = 1
     prediction_horizon: int = 1
-    data_type: str = "mesh"
+    data_type: str = "mesh"  # "rgbd" | "mesh" | "rgbd_and_mesh"
+    feature_type: FeatureExtractorType = FeatureExtractorType.RGB
+    feature_image_size: Tuple[int, int] = (32, 32)
+    # CLS/register token count of the ViT backbone (None = hub default).
+    feature_num_prefix_tokens: Optional[int] = None
     vertex_feature_dim: int = 768
     fps_subsampling_factor: int = 5
+    use_fps: bool = True
     use_instruction: bool = False
     lang_enhanced: bool = False
+    encode_openness: bool = True
+    use_shared_feature_encoder: bool = False
     rotation_parametrization: str = "6D"
     quaternion_format: str = "wxyz"
     diffusion_timesteps: int = 100
@@ -76,10 +88,18 @@ class DiffuserActorConfig:
                 f"{self.rotation_parametrization!r}); quaternion-space "
                 "diffusion is not implemented"
             )
-        if self.data_type != "mesh":
-            raise NotImplementedError(
-                f"data_type {self.data_type!r} is added by {IMAGE_SLICE}"
+        if self.data_type not in DATA_TYPES:
+            raise ValueError(f"data_type must be one of {DATA_TYPES}, got {self.data_type!r}")
+        if self.use_shared_feature_encoder and self.data_type == "mesh":
+            # The shared encoder routes mesh features through the image
+            # feature encoder, which only exists when images are encoded.
+            raise ValueError(
+                "use_shared_feature_encoder requires image inputs "
+                "(data_type 'rgbd' or 'rgbd_and_mesh'); with data_type "
+                "'mesh' there is no image encoder to share"
             )
+        object.__setattr__(self, "feature_type", FeatureExtractorType(self.feature_type))
+        object.__setattr__(self, "feature_image_size", tuple(self.feature_image_size))
         if self.use_instruction or self.lang_enhanced:
             raise NotImplementedError(
                 f"use_instruction / lang_enhanced are added by {LANGUAGE_SLICE}"
@@ -111,6 +131,12 @@ class DiffuserActor(nn.Module):
             ngrippers=cfg.ngrippers,
             num_attn_heads=cfg.num_attn_heads,
             fps_subsampling_factor=cfg.fps_subsampling_factor,
+            data_type=cfg.data_type,
+            encode_openness=cfg.encode_openness,
+            feature_type=cfg.feature_type,
+            feature_image_size=cfg.feature_image_size,
+            feature_num_prefix_tokens=cfg.feature_num_prefix_tokens,
+            use_shared_feature_encoder=cfg.use_shared_feature_encoder,
             vertex_feature_dim=cfg.vertex_feature_dim,
         )
         self.head = DiffusionHead(
@@ -130,34 +156,53 @@ class DiffuserActor(nn.Module):
 
     def encode(
         self,
-        vertex_features: torch.Tensor,
-        vertices: torch.Tensor,
+        rgb_obs: Optional[torch.Tensor],
+        pcd_obs: Optional[torch.Tensor],
+        pcd_valid_mask: Optional[torch.Tensor],
+        vertex_features: Optional[torch.Tensor],
+        vertices: Optional[torch.Tensor],
         vertices_valid_mask: Optional[torch.Tensor],
         gripper_history: torch.Tensor,
         curr_closedness: torch.Tensor,
     ) -> Dict[str, Any]:
-        """Encode the mesh and gripper history into fixed denoiser inputs.
+        """Encode images, mesh and gripper history into fixed denoiser inputs.
 
-        Shapes: vertex_features (B, Nv, C); vertices (B, Nv, 3); gripper_history
-        (B, nhist, G, 9); curr_closedness (B, nhist, G, 1).
+        Shapes (channel-last): rgb_obs (B, ncam, H, W, 3); pcd_obs likewise;
+        pcd_valid_mask (B, ncam, H, W); vertex_features (B, Nv, C); vertices
+        (B, Nv, 3); gripper_history (B, nhist, G, 9); curr_closedness
+        (B, nhist, G, 1). The context is the image tokens, then the mesh's.
         """
-        context_feats, context = self.encoder.encode_feature_pointcloud(
-            vertex_features, vertices
-        )
-        context_mask = (
-            vertices_valid_mask
-            if vertices_valid_mask is not None
-            else torch.ones(context_feats.shape[:2], dtype=torch.bool,
-                            device=context_feats.device)
-        )
+        cfg = self.config
+        parts_feats, parts_pos, parts_mask = [], [], []
+
+        def add(feats, pos, mask):
+            parts_feats.append(feats)
+            parts_pos.append(pos)
+            parts_mask.append(mask if mask is not None else torch.ones(
+                feats.shape[:2], dtype=torch.bool, device=feats.device))
+
+        if cfg.data_type in ("rgbd", "rgbd_and_mesh"):
+            add(*self.encoder.encode_images(rgb_obs, pcd_obs, valid_mask=pcd_valid_mask))
+        if cfg.data_type in ("mesh", "rgbd_and_mesh"):
+            add(*self.encoder.encode_feature_pointcloud(vertex_features, vertices),
+                vertices_valid_mask)
+        context_feats = torch.cat(parts_feats, dim=1)
+        context = torch.cat(parts_pos, dim=1)
+        context_mask = torch.cat(parts_mask, dim=1)
+
         adaln_gripper_feats, _, gripper_attn_weights = (
             self.encoder.encode_gripper_history(
                 gripper_history, context_feats, context, curr_closedness
             )
         )
-        fps_feats, fps_pos, fps_mask = self.encoder.run_fps(
-            context_feats, self.encoder.relative_pe(context), context_mask
-        )
+        if cfg.use_fps:
+            fps_feats, fps_pos, fps_mask = self.encoder.run_fps(
+                context_feats, self.encoder.relative_pe(context), context_mask
+            )
+        else:
+            fps_feats = context_feats
+            fps_pos = self.encoder.relative_pe(context)
+            fps_mask = context_mask
         return {
             "context_feats": context_feats,
             "context": context,
@@ -172,8 +217,11 @@ class DiffuserActor(nn.Module):
     def encode_prepared(self, prepared: Dict[str, Any]) -> Dict[str, Any]:
         """``encode`` on the output of ``prepare_inputs``."""
         return self.encode(
-            prepared["vertex_features"],
-            prepared["vertices"],
+            prepared.get("rgbs"),
+            prepared.get("pcds"),
+            prepared.get("pcd_valid_mask"),
+            prepared.get("vertex_features"),
+            prepared.get("vertices"),
             prepared.get("vertices_valid_mask"),
             prepared["gripper_history"],
             prepared["curr_closedness"],
@@ -204,15 +252,17 @@ def prepare_inputs(
     """Pure-data preprocessing shared by training and inference.
 
     Expects batch keys (numpy arrays or tensors, channel-last):
-    "gripper_history" (B, nhist, G, 8), "vertex_features" (B, Nv, C),
-    "vertices" (B, Nv, 3), optional "vertices_valid_mask" (B, Nv),
+    "gripper_history" (B, nhist, G, 8), and as the data type needs "rgbs"
+    (B, ncam, H, W, 3, float in [0, 1] or uint8), "pcds" (B, ncam, H, W, 3),
+    optional "pcd_valid_mask" (B, ncam, H, W), "vertex_features" (B, Nv, C),
+    "vertices" (B, Nv, 3), optional "vertices_valid_mask" (B, Nv); optional
     "gt_gripper_pred" (B, L, G, 8) and "gt_head_yaw". Returns tensors on
-    ``device`` (default ``cuda``). Mesh vertices stay absolute in relative
-    mode, as in the JAX package and upstream.
+    ``device`` (default ``cuda``). In relative mode the point clouds move
+    with the (single) gripper; mesh vertices stay absolute, as in the JAX
+    package and upstream, and the shifted clouds are still bounds-checked
+    against the absolute workspace.
     """
     device = resolve_device(device)
-    if batch.get("rgbs") is not None or batch.get("pcds") is not None:
-        raise NotImplementedError(f"image inputs are added by {IMAGE_SLICE}")
 
     def on_device(x):
         return None if x is None else torch.as_tensor(x, device=device)
@@ -223,6 +273,7 @@ def prepare_inputs(
     out["curr_closedness"] = gripper_history[..., 7:8]
     gripper_history = gripper_history[..., :7]
     out["current_pose"] = gripper_history[:, -1]  # (B, G, 7)
+    pcds = on_device(batch.get("pcds"))
     gt = on_device(batch.get("gt_gripper_pred"))
 
     if config.relative:
@@ -234,6 +285,9 @@ def prepare_inputs(
             [gripper_history[..., :3] - current_pos[:, None], gripper_history[..., 3:]],
             dim=-1,
         )
+        if pcds is not None:
+            # RGB-D mode has a single gripper; pcds are (B, ncam, H, W, 3).
+            pcds = pcds - current_pos[:, 0][:, None, None, None, :]
         if gt is not None:
             rel_pos = gt[..., :3] - current_pos[:, None]
             rel_quat = quaternion_multiply(
@@ -245,6 +299,14 @@ def prepare_inputs(
         gripper_history, bounds, config.rotation_parametrization,
         config.quaternion_format,
     )
+    if pcds is not None:
+        out["pcds"], in_bounds = normalize_pointcloud(pcds, bounds)
+        valid = on_device(batch.get("pcd_valid_mask"))
+        out["pcd_valid_mask"] = in_bounds if valid is None else (valid & in_bounds)
+        rgbs = on_device(batch.get("rgbs"))
+        if rgbs is not None and rgbs.dtype == torch.uint8:
+            rgbs = rgbs.to(torch.float32) / 255.0
+        out["rgbs"] = rgbs
     if batch.get("vertices") is not None:
         out["vertices"], _ = normalize_pos(on_device(batch["vertices"]), bounds)
         out["vertex_features"] = on_device(batch["vertex_features"])

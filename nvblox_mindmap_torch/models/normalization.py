@@ -2,8 +2,9 @@
 
 Port of ``nvblox_mindmap_tpu/models/normalization.py``:
 
-- Positions are affinely mapped from the workspace AABB to [-1, 1]; a
-  validity mask marks points inside the bounds.
+- Positions (gripper poses, mesh vertices, point clouds) are affinely
+  mapped from the workspace AABB to [-1, 1]; a validity mask marks points
+  inside the bounds.
 - Trajectory rotations arrive as quaternions (wxyz or xyzw per config) and
   are converted to the continuous 6D representation (first two
   rotation-matrix columns) for diffusion; openness logits get a sigmoid on
@@ -45,6 +46,13 @@ def normalize_pos(
     pos_max = workspace_bounds[1].to(pos.dtype)
     valid = torch.all((pos >= pos_min) & (pos <= pos_max), dim=-1)
     return (pos - pos_min) / (pos_max - pos_min) * 2.0 - 1.0, valid
+
+
+def normalize_pointcloud(
+    pcd: torch.Tensor, workspace_bounds: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Channel-last point clouds (..., H, W, 3) -> normalized + in-bounds mask."""
+    return normalize_pos(pcd, workspace_bounds)
 
 
 def unnormalize_pos(pos: torch.Tensor, workspace_bounds: torch.Tensor) -> torch.Tensor:

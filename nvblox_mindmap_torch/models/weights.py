@@ -10,7 +10,15 @@ The input is the nested dict of numpy arrays that
 - flax's auto-names map to the port's attributes: ``MultiheadAttention_0``
   -> ``attention``, ``LayerNorm_0`` -> ``norm``, ``AdaLN_0`` -> ``adaln``,
   ``Dense_0`` / ``Dense_1`` (inside ``Mlp``) -> ``fc1`` / ``fc2``, and the
-  stacked layers ``attn_{i}`` / ``ffw_{i}`` -> ``attn.{i}`` / ``ffw.{i}``.
+  stacked layers ``attn_{i}`` / ``ffw_{i}`` -> ``attn.{i}`` / ``ffw.{i}``
+  (the ViT's ``ln1_{i}``, ``ln2_{i}``, ``mlp1_{i}``, ``mlp2_{i}``,
+  ``ls1_{i}``, ``ls2_{i}`` likewise);
+- the ViT under ``encoder/feature_extractor``: the ``patch_embed`` Conv
+  kernel (kh, kw, in, out) becomes (out, in, kh, kw); the attention's
+  ``DenseGeneral`` kernels ``query`` / ``key`` / ``value`` (E, H, D) become
+  (H*D, E) and ``out`` (H, D, E) becomes (E, H*D); their (H, D) biases are
+  flattened; ``pos_embed``, ``prefix_tokens`` and the LayerScale gammas are
+  taken as they are.
 
 Loading is strict: a key left over on either side, or a shape that differs,
 raises.
@@ -31,31 +39,44 @@ AUTO_NAMES = {
     "Dense_0": "fc1",
     "Dense_1": "fc2",
 }
-_STACKED = re.compile(r"^(attn|ffw)_(\d+)$")
+_STACKED = re.compile(r"^(attn|ffw|ln1|ln2|mlp1|mlp2|ls1|ls2)_(\d+)$")
+
+
+def _rename(name: str) -> str:
+    stacked = _STACKED.match(name)
+    return f"{stacked[1]}.{stacked[2]}" if stacked else AUTO_NAMES.get(name, name)
+
+
+def _convert_leaf(name: str, array: np.ndarray, parent: str):
+    """(torch name, array) for one flax leaf inside the module ``parent``."""
+    if name == "kernel":
+        if array.ndim == 4:  # Conv (kh, kw, in, out) -> (out, in, kh, kw)
+            return "weight", array.transpose(3, 2, 0, 1)
+        if array.ndim == 3 and parent == "out":  # DenseGeneral (H, D, E)
+            return "weight", array.reshape(-1, array.shape[-1]).T
+        if array.ndim == 3:  # DenseGeneral (E, H, D)
+            return "weight", array.reshape(array.shape[0], -1).T
+        return "weight", array.T
+    if name == "bias":  # DenseGeneral biases are (H, D)
+        return name, array.reshape(-1)
+    if name == "scale":
+        return "weight", array
+    return _rename(name), array
 
 
 def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flatten a flax parameter tree into the port's state_dict names."""
     out: Dict[str, torch.Tensor] = {}
 
-    def walk(tree: Mapping[str, Any], prefix: list):
+    def walk(tree: Mapping[str, Any], prefix: list, parent: str):
         for name, value in tree.items():
             if isinstance(value, Mapping):
-                stacked = _STACKED.match(name)
-                part = (f"{stacked[1]}.{stacked[2]}" if stacked
-                        else AUTO_NAMES.get(name, name))
-                walk(value, prefix + [part])
+                walk(value, prefix + [_rename(name)], name)
                 continue
-            array = np.asarray(value, dtype=np.float32)
-            if name == "kernel":
-                name, array = "weight", array.T
-            elif name == "scale":
-                name = "weight"
-            out[".".join(prefix + [name])] = torch.from_numpy(
-                np.array(array, order="C")
-            )
+            key, array = _convert_leaf(name, np.asarray(value, dtype=np.float32), parent)
+            out[".".join(prefix + [key])] = torch.from_numpy(np.array(array, order="C"))
 
-    walk(params, [])
+    walk(params, [], "")
     return out
 
 

@@ -9,7 +9,10 @@ them; there, skip the JAX-importing ``tests/conftest.py``:
 Tolerance: fp32 atol 2e-5, kernel vs plain version (the same function with
 another summation order; the tile kernel's 3xTF32 products keep fp32
 accuracy); model outputs atol 5e-3 flash vs eager, the JAX package's own
-swap-test bound.
+swap-test bound. The bf16 ViT on the card vs the port on the CPU: mean abs
+<= 1e-2 and max abs <= 0.1, the bound that holds the port to the JAX
+package (``tests/test_torch_image_path.py``): the two round bf16 at other
+places.
 """
 import numpy as np
 import pytest
@@ -59,6 +62,11 @@ def _inputs(gen, B, H, L, S, D, masked):
         (2, 4, 6, 2047, 9, True),
         (2, 4, 1, 1, 15, False),
         (2, 4, 20, 1, 15, False),
+        # The flagship rgbd_and_mesh path: 4096 context tokens, 1 + 819 FPS.
+        (1, 8, 3, 4096, 15, False),
+        (8, 8, 1, 4096, 15, True),
+        (1, 8, 820, 820, 15, True),
+        (8, 8, 820, 820, 15, True),
         # Head dims 9, 15, 32, 64 on both kernels.
         (2, 3, 5, 700, 9, True),
         (2, 3, 100, 130, 33, True),
@@ -106,6 +114,20 @@ def test_one_split_wholly_masked(gen, L):
     q, k, v, _ = _inputs(gen, 2, 8, L, 2048, 15, masked=False)
     mask = torch.rand(2, 2048, device="cuda", generator=gen) > 0.3
     mask[:, :256] = False
+    out = fa.flash_attention(q, k, v, mask)
+    ref = fa.flash_attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("L", [1, 3, 820])
+def test_chunks_wholly_masked_at_4096_keys(gen, L):
+    """At S = 4096 each split-kernel block walks two chunks of 256 keys:
+    block 0's first chunk and block 1's second are masked."""
+    q, k, v, _ = _inputs(gen, 2, 8, L, 4096, 15, masked=False)
+    mask = torch.rand(2, 4096, device="cuda", generator=gen) > 0.3
+    mask[:, :256] = False
+    mask[:, 768:1024] = False
     out = fa.flash_attention(q, k, v, mask)
     ref = fa.flash_attention_reference(q, k, v, mask)
     torch.cuda.synchronize()
@@ -198,3 +220,73 @@ def test_model_flash_path_matches_eager_on_cuda(gen):
     assert flash[2] is None and eager[2] is not None
     torch.testing.assert_close(flash[0], eager[0], rtol=0, atol=5e-3)
     torch.testing.assert_close(flash[1], eager[1], rtol=0, atol=5e-3)
+
+
+def _assert_bf16_close(out, ref):
+    diff = (out.float().cpu() - ref.float()).abs()
+    assert diff.mean().item() <= 1e-2 and diff.max().item() <= 0.1, (diff.mean(), diff.max())
+
+
+def _vit(feature_type):
+    from nvblox_mindmap_torch.models.feature_extractors import (
+        NORMALIZATION,
+        VitFeatureExtractor,
+    )
+
+    geometry = {"radio_v25_b": dict(patch_size=16, width=768, num_heads=12),
+                "dino_v2_vits14": dict(patch_size=14, width=384, num_heads=6,
+                                       use_layer_scale=True)}[feature_type]
+    return VitFeatureExtractor(depth=2, feature_image_size=(4, 4), num_prefix_tokens=1,
+                               mean_std=NORMALIZATION[feature_type], **geometry)
+
+
+@pytest.mark.parametrize("feature_type", ["radio_v25_b", "dino_v2_vits14"])
+def test_vit_on_cuda_matches_cpu(gen, feature_type):
+    """Published widths, depth 2, a 4x4 patch grid, 2 images."""
+    import copy
+
+    torch.manual_seed(0)
+    cpu = _vit(feature_type)
+    rgb = torch.rand(2, 72, 72, 3)
+    ref = cpu(rgb)
+    out = copy.deepcopy(cpu).to("cuda")(rgb.to("cuda"))
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    _assert_bf16_close(out, ref)
+
+
+def test_encode_images_on_cuda_matches_cpu(gen):
+    """rgbd_and_mesh at RADIO geometry (depth 2), 2 cameras at 64x64 with an
+    invalid region, embedding 120."""
+    import copy
+
+    from nvblox_mindmap_torch.models.diffuser_actor import (
+        DiffuserActor,
+        DiffuserActorConfig,
+        prepare_inputs,
+    )
+
+    cfg = DiffuserActorConfig(data_type="rgbd_and_mesh", feature_type="radio_v25_b",
+                              feature_image_size=(4, 4), vertex_feature_dim=8)
+    torch.manual_seed(0)
+    cpu = DiffuserActor(cfg, device="cpu")
+    cpu.encoder.feature_extractor = _vit("radio_v25_b")
+    rng = np.random.default_rng(0)
+    valid = np.ones((2, 2, 64, 64), bool)
+    valid[:, 0, :16] = False
+    batch = {"gripper_history": np.zeros((2, 3, 1, 8), np.float32),
+             "rgbs": rng.uniform(0, 1, (2, 2, 64, 64, 3)).astype(np.float32),
+             "pcds": rng.uniform(0, 1, (2, 2, 64, 64, 3)).astype(np.float32),
+             "pcd_valid_mask": valid}
+    batch["gripper_history"][..., 3] = 1.0
+    bounds = np.asarray([[0, 0, 0], [1, 1, 1]], np.float32)
+    outs = []
+    for model, device in ((cpu, "cpu"), (copy.deepcopy(cpu).to("cuda"), "cuda")):
+        prep = prepare_inputs(batch, bounds, cfg, device=device)
+        with torch.no_grad():
+            outs.append(model.encoder.encode_images(prep["rgbs"], prep["pcds"],
+                                                    prep["pcd_valid_mask"]))
+    (feats, pos, mask), (feats_c, pos_c, mask_c) = outs
+    assert feats_c.shape == feats.shape == (2, 32, 120)
+    _assert_bf16_close(feats_c, feats)
+    torch.testing.assert_close(pos_c.cpu(), pos, rtol=0, atol=1e-5)
+    assert torch.equal(mask_c.cpu(), mask) and not bool(mask.all())

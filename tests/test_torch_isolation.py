@@ -1,7 +1,8 @@
 """The torch port stands alone: no JAX, no flax, nothing of the JAX package.
 
-- A subprocess that blocks ``jax`` imports the port and runs the small
-  keypose path on the CPU, then checks which modules were loaded.
+- A subprocess that blocks ``jax`` imports the port and runs small mesh and
+  rgbd_and_mesh keypose predictions on the CPU, then checks which modules
+  were loaded.
 - A scan of the port's sources and ``chip_smoke.py`` for such imports.
 - Entry points called without a device on a machine without CUDA raise
   rather than fall back to the CPU.
@@ -47,6 +48,22 @@ kw = apply_inference_settings(dict(convert_to_flash_attention(), **convert_diffu
 traj, _, weights = sample_trajectory(model, prepared, bounds,
                                      generator=torch.Generator().manual_seed(0), **kw)
 assert traj.shape == (1, 1, 1, 8) and bool(torch.isfinite(traj).all()) and weights is None
+
+# rgbd_and_mesh through a registry ViT (DINOv2 geometry, 2x2 patch grid,
+# random weights) with uint8 images; the backbone-checkpoint modules import.
+import nvblox_mindmap_torch.models.pretrained  # noqa: F401
+cfg = DiffuserActorConfig(embedding_dim=24, num_attn_heads=4, vertex_feature_dim=8,
+                          data_type="rgbd_and_mesh", feature_type="dino_v2_vits14",
+                          feature_image_size=(2, 2), diffusion_timesteps=10,
+                          fps_subsampling_factor=4)
+model = DiffuserActor(cfg, device="cpu")
+batch["rgbs"] = rng.integers(0, 256, (1, 2, 28, 28, 3)).astype(np.uint8)
+batch["pcds"] = rng.uniform(0, 1, (1, 2, 28, 28, 3)).astype(np.float32)
+batch["pcd_valid_mask"] = np.ones((1, 2, 28, 28), bool)
+prepared = prepare_inputs(batch, bounds, cfg, device="cpu")
+traj, _, _ = sample_trajectory(model, prepared, bounds,
+                               generator=torch.Generator().manual_seed(0), **kw)
+assert traj.shape == (1, 1, 1, 8) and bool(torch.isfinite(traj).all())
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in {FORBIDDEN})
 print("LOADED", loaded)
@@ -93,6 +110,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
         DiffuserActorConfig,
         prepare_inputs,
     )
+    from nvblox_mindmap_torch.models.pretrained import build_backbone
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = DiffuserActorConfig(embedding_dim=24, num_attn_heads=4, vertex_feature_dim=8)
@@ -101,7 +119,11 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         prepare_inputs({"gripper_history": np.zeros((1, 3, 1, 8), np.float32)},
                        np.zeros((2, 3), np.float32), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_backbone("rgb", feature_image_size=(4, 4))
     assert DiffuserActor(cfg, device="cpu").device == torch.device("cpu")
+    rgb = build_backbone("rgb", feature_image_size=(4, 4), device="cpu")
+    assert rgb(torch.zeros(1, 16, 16, 3)).shape == (1, 4, 4, 3)
 
 
 def test_chip_smoke_refuses_without_cuda():

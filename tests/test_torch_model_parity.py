@@ -290,12 +290,10 @@ def test_bridge_is_strict(small):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="image"):
-        tda.DiffuserActorConfig(data_type="rgbd_and_mesh")
+    cfg = tda.DiffuserActorConfig(data_type="rgbd_and_mesh", feature_type="clip_resnet50_fpn")
+    with pytest.raises(NotImplementedError, match="clip_resnet_fpn"):
+        tda.DiffuserActor(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="language"):
         tda.DiffuserActorConfig(use_instruction=True)
-    _, tcfg = configs(SMALL_FEATURES, **SMALL)
-    with pytest.raises(NotImplementedError, match="image"):
-        tda.prepare_inputs({"gripper_history": np.zeros((1, 3, 2, 8), np.float32),
-                            "rgbs": np.zeros((1, 1, 4, 4, 3), np.float32)},
-                           BOUNDS, tcfg, device="cpu")
+    with pytest.raises(ValueError, match="image inputs"):
+        tda.DiffuserActorConfig(data_type="mesh", use_shared_feature_encoder=True)
