@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the torch port's keypose-prediction path on one NVIDIA GPU.
+"""Drive the torch port's keypose prediction, live mapping and closed-loop
+policy on one NVIDIA GPU.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It
 
@@ -27,7 +28,24 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    (self-attention). Its trajectory must match the eager attention path on
    the card with the same noise (atol 5e-3); FPS is timed at both context
    sizes;
-6. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}`` as
+6. holds the port's mapper on the card to the same code on the CPU (phase
+   ``mapper_check``: 2 cm voxels, 32-d features, 128x128 frames of the scene
+   below), and times one map update (``fuse_frame``: decay, TSDF, page
+   allocation, 768-d feature fusion) at the configuration of the JAX
+   package's fusion bench, the drill_in_box box at 1 cm (136x152x80 voxels),
+   1024 pages, 512x512 frames, beside its byte bound, with each of its ops
+   on its own (phases ``fusion``, ``fusion_ops``);
+7. drives the closed-loop policy (``NvbloxDiffuserActorPolicy``) at full
+   size: the flagship model, a RADIO ViT-B/16 mapping feature function
+   upscaled to 512x512x768, that map, 2 cameras at 512x512 over an
+   analytically rendered scene (a table, boxes, and a box labelled
+   ``robot`` that the dynamic mask keeps out of the map), DDIM-10 at batch
+   1 and 2048 sampled vertices. It times sim steps (feature function and
+   fusion per camera) and goals (mesh extraction, vertex sampling,
+   back-projection, prediction), profiles one of each, checks that every
+   goal launches 3 + 10*T flash calls and that a goal through the kernels
+   matches eager attention (phase ``closed_loop``);
+8. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}`` as
    the last line.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -559,6 +577,407 @@ def run_slice(data_type, reps):
     return launches_total
 
 
+# --------------------------------------------------------------------------
+# Live mapping and the closed loop
+# --------------------------------------------------------------------------
+
+# The closed loop's scene: a table top (z = 0) over the drill_in_box box,
+# three boxes on it, and one box labelled "robot" (the task's dynamic
+# class): (min corner, max corner, RGB, label id).
+SCENE_BOXES = (
+    ((-0.30, -0.70, -0.05), (0.90, 0.70, 0.00), (0.55, 0.45, 0.35), 1),
+    ((0.05, -0.40, 0.00), (0.25, -0.18, 0.14), (0.80, 0.20, 0.20), 2),
+    ((0.35, 0.05, 0.00), (0.52, 0.28, 0.22), (0.20, 0.70, 0.30), 3),
+    ((0.55, -0.20, 0.00), (0.75, 0.02, 0.09), (0.20, 0.30, 0.80), 4),
+    ((0.00, 0.30, 0.00), (0.16, 0.46, 0.48), (0.60, 0.60, 0.60), 9),
+)
+SCENE_LABELS = {0: "background", 1: "table", 2: "box_a", 3: "box_b", 4: "box_c", 9: "robot"}
+# Camera positions, each looking at the middle of the table.
+SCENE_CAMERAS = {"front": (1.25, 0.05, 0.85), "side": (0.35, -1.05, 0.80)}
+SCENE_TARGET = (0.30, 0.0, 0.05)
+FOCAL = 400.0  # px at 512x512
+MAP_FEATURES = 768
+MAP_PAGES = 1024
+CLOSED_LOOP_STEPS = 10  # DDIM-10
+# Card vs CPU: every map field within MAP_ATOL on all but MAP_TIE_SHARE of
+# its entries (a voxel centre on a half-pixel tie may round to the next
+# pixel); surface vertices within MAP_ATOL; their features, which blend two
+# TSDF endpoints by the crossing position, within MAP_FEATURE_ATOL.
+MAP_ATOL = 1e-5
+MAP_FEATURE_ATOL = 1e-3
+MAP_TIE_SHARE = 1e-3
+
+
+def look_at_pose7(eye, target):
+    """(7,) position + wxyz quaternion of a camera at ``eye`` whose +z looks
+    at ``target``, +y pointing down."""
+    import numpy as np
+
+    eye, target = np.asarray(eye, np.float64), np.asarray(target, np.float64)
+    z = (target - eye) / np.linalg.norm(target - eye)
+    x = np.cross(z, [0.0, 0.0, 1.0])
+    x /= np.linalg.norm(x)
+    R = np.stack([x, np.cross(z, x), z], axis=1)
+    # Shepperd's method on a proper rotation.
+    t = np.trace(R)
+    if t > 0:
+        s = 2.0 * np.sqrt(t + 1.0)
+        q = [0.25 * s, (R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s, (R[1, 0] - R[0, 1]) / s]
+    else:
+        i = int(np.argmax(np.diag(R)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = 2.0 * np.sqrt(R[i, i] - R[j, j] - R[k, k] + 1.0)
+        q = np.empty(4)
+        q[0] = (R[k, j] - R[j, k]) / s
+        q[1 + i] = 0.25 * s
+        q[1 + j] = (R[j, i] + R[i, j]) / s
+        q[1 + k] = (R[k, i] + R[i, k]) / s
+    return np.concatenate([eye, np.asarray(q) / np.linalg.norm(q)]).astype(np.float32)
+
+
+def render_camera(pose7, size):
+    """(rgb (H, W, 3) float32, depth (H, W), K, segmentation): ray casting
+    against the scene's boxes; a ray that hits nothing has depth 0."""
+    import numpy as np
+
+    from nvblox_mindmap_torch.geometry.np_rotations import pose7_to_matrix
+
+    f = FOCAL * size / IMAGE
+    K = np.asarray([[f, 0, size / 2], [0, f, size / 2], [0, 0, 1]], np.float32)
+    T = pose7_to_matrix(pose7).astype(np.float64)
+    v, u = np.mgrid[0:size, 0:size].astype(np.float64)
+    rays_cam = np.stack([(u - size / 2) / f, (v - size / 2) / f, np.ones_like(u)], -1)
+    rays = rays_cam @ T[:3, :3].T  # camera z = 1 along each ray: t is the depth
+    origin = T[:3, 3]
+    depth = np.full((size, size), np.inf)
+    rgb = np.zeros((size, size, 3))
+    seg = np.zeros((size, size), np.int32)
+    face_shade = np.asarray([0.8, 0.65, 1.0])  # by the axis of the face hit
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for lo, hi, color, label in SCENE_BOXES:
+            t1 = (np.asarray(lo) - origin) / rays
+            t2 = (np.asarray(hi) - origin) / rays
+            enter = np.nan_to_num(np.minimum(t1, t2), nan=-np.inf)
+            leave = np.nan_to_num(np.maximum(t1, t2), nan=np.inf)
+            near, far = enter.max(axis=-1), leave.min(axis=-1)
+            hit = (near <= far) & (near > 0) & (near < depth)
+            depth[hit] = near[hit]
+            shade = face_shade[enter.argmax(axis=-1)][..., None]
+            rgb[hit] = (np.asarray(color) * shade)[hit]
+            seg[hit] = label
+    depth[~np.isfinite(depth)] = 0.0
+    return rgb.astype(np.float32), depth.astype(np.float32), K, seg
+
+
+def scene_environment(size):
+    """The closed loop's environment: the scene through both cameras at
+    ``size`` x ``size``, and the arm's policy state above the table."""
+    import numpy as np
+
+    from nvblox_mindmap_torch.closed_loop.environment import CameraFrame, EnvironmentBase
+
+    class Scene(EnvironmentBase):
+        semantic_id_to_class = SCENE_LABELS
+
+        def __init__(self):
+            self.frames = {}
+            for name, eye in SCENE_CAMERAS.items():
+                pose7 = look_at_pose7(eye, SCENE_TARGET)
+                rgb, depth, K, seg = render_camera(pose7, size)
+                self.frames[name] = CameraFrame(rgb, depth, K, pose7, seg)
+
+        def get_cameras(self):
+            return self.frames
+
+        def get_policy_state(self):
+            # pos3 + quat4 (gripper pointing down) + closedness
+            return np.asarray([0.30, 0.0, 0.40, 0, 1, 0, 0, 0], np.float32)
+
+    return Scene()
+
+
+def mapping_config(voxel_size_m=None, feature_dim=MAP_FEATURES, pages=MAP_PAGES, image=IMAGE):
+    from nvblox_mindmap_torch.mapping.constants import MappingConfig, Tasks
+
+    return MappingConfig.for_task(Tasks.DRILL_IN_BOX, feature_dim=feature_dim,
+                                  voxel_size_m=voxel_size_m,
+                                  max_feature_pages=pages).scaled_for_image_size((image, image))
+
+
+def check_mapper():
+    """The mapper on the card against the same code on the CPU: 3 frames of
+    the scene at 128x128 through the recipe (decay, depth, color, 32-d
+    features, the dynamic mask), then the extracted surface."""
+    import numpy as np
+    import torch
+
+    from nvblox_mindmap_torch.closed_loop.environment import dynamic_mask_from_segmentation
+    from nvblox_mindmap_torch.geometry.np_rotations import pose7_to_matrix
+    from nvblox_mindmap_torch.mapping.constants import MapperId
+    from nvblox_mindmap_torch.mapping.mapper import Mapper, nvblox_integrate
+    from nvblox_mindmap_torch.mapping.voxel_grid import state_to_numpy
+
+    size, features = 128, 32
+    cfg = mapping_config(voxel_size_m=0.02, feature_dim=features, pages=512, image=size)
+    env = scene_environment(size)
+    mappers = {d: Mapper({MapperId.STATIC: cfg}, device=d) for d in ("cuda", "cpu")}
+    rng = np.random.default_rng(5)
+    frames = list(env.get_cameras().values())
+    for i in range(3):
+        frame = frames[i % len(frames)]
+        feats = rng.normal(size=(size, size, features)).astype(np.float32)
+        dynamic = dynamic_mask_from_segmentation(frame.segmentation, SCENE_LABELS,
+                                                 cfg.dynamic_class_labels)
+        for mapper in mappers.values():
+            mapper.decay()
+            nvblox_integrate(mapper, cfg, frame.depth, feats, frame.intrinsics,
+                             pose7_to_matrix(frame.pose7), frame.rgb, dynamic, False)
+    torch.cuda.synchronize()
+    card, host = (state_to_numpy(mappers[d].states[MapperId.STATIC]) for d in ("cuda", "cpu"))
+    for name in ("page_table", "page_to_block", "num_pages"):
+        if not np.array_equal(card[name], host[name]):
+            raise AssertionError(f"mapper_check: {name} differs between card and CPU")
+    off = {}
+    for name in ("tsdf", "weight", "feat_weight", "color_weight", "feat", "color"):
+        a, b = card[name].astype(np.float32), host[name].astype(np.float32)
+        bad = ~np.isclose(a, b, atol=MAP_ATOL, rtol=0)
+        off[name] = dict(entries=int(bad.sum()), exact=bool(np.array_equal(card[name], host[name])),
+                         max_abs_err=float(np.abs(a - b).max()))
+        if bad.mean() > MAP_TIE_SHARE:
+            raise AssertionError(f"mapper_check: {name} differs on {bad.mean():.2e} of entries")
+    meshes = {}
+    for d, mapper in mappers.items():
+        mapper.update_feature_mesh(MapperId.STATIC)
+        v, f, valid = mapper.get_feature_mesh(MapperId.STATIC)
+        meshes[d] = (mapper.last_crossing_count, v[valid].cpu().numpy(), f[valid].cpu().numpy())
+    (count, v_card, f_card), (count_cpu, v_cpu, f_cpu) = meshes["cuda"], meshes["cpu"]
+    if count != count_cpu or v_card.shape != v_cpu.shape or count < 1000:
+        raise AssertionError(f"mapper_check: {count} vs {count_cpu} surface crossings")
+    vertex_err = float(np.abs(v_card - v_cpu).max())
+    feature_err = float(np.abs(f_card - f_cpu).max())
+    if not (vertex_err <= MAP_ATOL and feature_err <= MAP_FEATURE_ATOL):
+        raise AssertionError(f"mapper_check: vertices {vertex_err}, features {feature_err}")
+    phase("mapper_check", grid=list(cfg.grid_shape), voxel_size_m=cfg.voxel_size_m,
+          feature_dim=features, frames=3, image=size, pages=int(card["num_pages"]),
+          crossings=count, vertex_max_abs_err=vertex_err, feature_max_abs_err=feature_err,
+          fields=off)
+
+
+def fusion_bytes(cfg, image, pages):
+    """Bytes one ``fuse_frame`` must move with ``pages`` pool pages: the
+    TSDF and weights read and written, the depth image read, the fp16 pool
+    read and written, its fp32 weights (features and color) read and
+    written, and a feature row gathered for every pool voxel."""
+    X, Y, Z = cfg.grid_shape
+    slots = pages * cfg.block_size**3
+    return (2 * 2 * 4 * X * Y * Z + 4 * image * image + 2 * 2 * slots * cfg.feature_dim
+            + 2 * 2 * 4 * slots + 2 * slots * cfg.feature_dim)
+
+
+def measure_fusion(frames=30):
+    """``fuse_frame`` at the JAX package's fusion-bench configuration: host
+    clock per frame, device busy time from the profiler, the byte bound;
+    then each op of the frame on its own."""
+    import numpy as np
+    import torch
+
+    from nvblox_mindmap_torch.mapping import voxel_grid as vg
+
+    cfg = mapping_config()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = vg.create_state(cfg, device="cuda")
+    depth = 0.5 + 1.5 * torch.rand((IMAGE, IMAGE), generator=gen, device="cuda")
+    feats = torch.randn((IMAGE, IMAGE, MAP_FEATURES), generator=gen, device="cuda").half()
+    T = torch.eye(4, device="cuda")
+    K = torch.tensor([[400.0, 0, 256], [0, 400.0, 256], [0, 0, 1]], device="cuda")
+    holder = {"state": state}
+
+    def fuse():
+        holder["state"] = vg.fuse_frame(holder["state"], cfg, depth, feats, T, K, K)
+
+    for _ in range(3):
+        fuse()
+    torch.cuda.reset_peak_memory_stats()
+    times = [host_ms(fuse) for _ in range(frames)]
+    p50, q1, q3 = quartiles(times)
+    prof = profile(fuse, p50)
+    pages = int(holder["state"].num_pages)
+    X, Y, Z = cfg.grid_shape
+    bound_ms = fusion_bytes(cfg, IMAGE, cfg.max_feature_pages) / PEAK_BYTES_PER_S * 1e3
+    bound_live_ms = fusion_bytes(cfg, IMAGE, pages) / PEAK_BYTES_PER_S * 1e3
+    phase("fusion", grid=[X, Y, Z], voxels=X * Y * Z, feature_dim=MAP_FEATURES,
+          max_pages=cfg.max_feature_pages, live_pages=pages, image=IMAGE, frames=frames,
+          p50_ms=p50, q1_ms=q1, q3_ms=q3, hz=1e3 / p50,
+          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+          bound_bytes=fusion_bytes(cfg, IMAGE, cfg.max_feature_pages), bound_ms=bound_ms,
+          bound_by="bytes", bound_share_of_busy=bound_ms / prof["device_busy_ms"],
+          bound_live_pages_ms=bound_live_ms, profile=prof)
+
+    # Each op alone on the same map, with the bytes it must move.
+    s = holder["state"]
+    slots = cfg.max_feature_pages * cfg.block_size**3
+    F = cfg.feature_dim
+    V = X * Y * Z
+    mesh_budget = 65536
+    ops = {
+        "decay": (lambda: vg.decay(s, cfg), 2 * 2 * 4 * V + 2 * 2 * 2 * 4 * slots),
+        "integrate_depth": (lambda: vg.integrate_depth(s, cfg, depth, T, K),
+                            2 * 2 * 4 * V + 4 * IMAGE * IMAGE),
+        "allocate_pages": (lambda: vg.allocate_pages(s, cfg), 2 * 4 * V + 2 * 2 * 2 * 4 * slots),
+        "integrate_features_pool": (
+            lambda: vg._integrate_pool(s.feat, s.feat_weight, s.page_to_block, s.tsdf, s.weight,
+                                       feats, T, K, None, cfg, 1.0),
+            3 * 2 * slots * F + 2 * 2 * 4 * slots + 2 * 4 * slots),
+        "extract_surface_vertices": (
+            lambda: vg.extract_surface_vertices(s, cfg, mesh_budget, return_count=True),
+            2 * 4 * V + mesh_budget * 4 * (3 + F) + 2 * 2 * mesh_budget * F),
+    }
+    for name, (fn, nbytes) in ops.items():
+        fn()
+        op_times = [host_ms(fn) for _ in range(10)]
+        op_p50, op_q1, op_q3 = quartiles(op_times)
+        op_prof = profile(fn, op_p50)
+        op_bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        phase("fusion_ops", op=name, p50_ms=op_p50, q1_ms=op_q1, q3_ms=op_q3,
+              device_busy_ms=op_prof["device_busy_ms"],
+              device_launches=op_prof["device_launches"], bound_bytes=nbytes,
+              bound_ms=op_bound, bound_share_of_busy=op_bound / op_prof["device_busy_ms"],
+              top=op_prof["top"][:3])
+    del holder, s, state, feats
+    torch.cuda.empty_cache()
+
+
+def run_closed_loop(steps=8, goals=6, parts_reps=5):
+    """Phase 7: ``NvbloxDiffuserActorPolicy`` at full size on the card.
+    Returns each kernel's launches over the timed goals."""
+    import numpy as np
+    import torch
+
+    from nvblox_mindmap_torch.closed_loop.environment import dynamic_mask_from_segmentation
+    from nvblox_mindmap_torch.closed_loop.policies import NvbloxDiffuserActorPolicy
+    from nvblox_mindmap_torch.embodiments.codecs import ArmEmbodiment
+    from nvblox_mindmap_torch.geometry.np_rotations import pose7_to_matrix
+    from nvblox_mindmap_torch.mapping.mapper import nvblox_integrate
+    from nvblox_mindmap_torch.models.converter import (
+        apply_inference_settings,
+        convert_to_flash_attention,
+    )
+    from nvblox_mindmap_torch.models.diffuser_actor import DiffuserActor, prepare_inputs
+    from nvblox_mindmap_torch.models.feature_extractors import make_feature_extractor
+    from nvblox_mindmap_torch.models.pretrained import backbone_feature_fn
+    from nvblox_mindmap_torch.ops import flash_attention as fa
+    from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
+
+    torch.manual_seed(0)
+    model = DiffuserActor(model_config("rgbd_and_mesh"), device="cuda")
+    vit = make_feature_extractor("radio_v25_b", (PATCHES, PATCHES)).to("cuda")
+    cfg = mapping_config()
+    policy = NvbloxDiffuserActorPolicy(
+        model, ArmEmbodiment(), cfg, np.asarray(WORKSPACE, np.float32),
+        num_vertices_to_sample=VERTICES, feature_fn=backbone_feature_fn(vit, (IMAGE, IMAGE)),
+        seed=0, num_inference_steps=CLOSED_LOOP_STEPS, scheduler_kind="ddim",
+        stochastic_sampling=False, device="cuda")
+    env = scene_environment(IMAGE)
+    cameras = env.get_cameras()
+
+    # Sim steps: the map fills.
+    for _ in range(2):
+        policy.step(env)
+    step_times = [host_ms(lambda: policy.step(env)) for _ in range(steps)]
+    step_p50, step_q1, step_q3 = quartiles(step_times)
+    parts = {"decay": [], "feature_fn": [], "integrate_frame": []}
+    for _ in range(parts_reps):
+        parts["decay"].append(host_ms(policy.mapper.decay))
+        for frame in cameras.values():
+            holder = {}
+            parts["feature_fn"].append(host_ms(
+                lambda: holder.update(f=policy.feature_fn(frame.rgb))))
+            dynamic = dynamic_mask_from_segmentation(frame.segmentation, SCENE_LABELS,
+                                                     cfg.dynamic_class_labels)
+            parts["integrate_frame"].append(host_ms(lambda: nvblox_integrate(
+                policy.mapper, cfg, frame.depth, holder["f"], frame.intrinsics,
+                pose7_to_matrix(frame.pose7), frame.rgb, dynamic, False)))
+    step_profile = profile(lambda: policy.step(env), step_p50, vit)
+
+    # One goal's inputs: the surface must hold more vertices than the budget.
+    policy._update_history(env)
+    vertices, features = policy.mesh_vertices()
+    if len(vertices) < VERTICES or features.shape[1] != MAP_FEATURES:
+        raise AssertionError(f"closed_loop: {vertices.shape} surface vertices, need "
+                             f">= {VERTICES} of {MAP_FEATURES}-d")
+    batch = policy._model_inputs(env)
+    if not bool(batch["vertices_valid_mask"].all()):
+        raise AssertionError("closed_loop: vertex sampling padded instead of downsampling")
+    with torch.no_grad():
+        fixed = model.encode_prepared(prepare_inputs(batch, policy.bounds, model.config,
+                                                     device="cuda"))
+    image_valid_share = fixed["context_mask"][:, :CAMERAS * PATCHES * PATCHES].float().mean().item()
+    init = torch.randn((1, 1, 1, 9), generator=torch.Generator(device="cuda").manual_seed(4),
+                       device="cuda")
+    set_default_attention_impl("eager")
+    traj_eager, _ = policy.predict(batch, init)
+    rest = apply_inference_settings(convert_to_flash_attention())
+    if rest:
+        raise AssertionError(f"unexpected sampler settings {rest}")
+    traj_flash, _ = policy.predict(batch, init)
+    err = float(np.abs(traj_flash - traj_eager).max())
+    if not err <= TRAJ_ATOL:
+        raise AssertionError(f"closed_loop: flash vs eager goal {err} > {TRAJ_ATOL}")
+
+    # The main path: whole goals through the kernels, counted.
+    fa.flash_attention.launches = 0
+    fa.KERNEL_LAUNCHES.update(dict.fromkeys(fa.KERNELS, 0))
+    goal_times, goal_states = [], []
+    for _ in range(goals):
+        goal_times.append(host_ms(lambda: goal_states.append(policy.get_new_goal(env))))
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    by_kernel = dict(fa.KERNEL_LAUNCHES)
+    T = CLOSED_LOOP_STEPS
+    expected = {"flash_attention_split": goals * (3 + 2 * T),
+                "flash_attention_tile": goals * 8 * T}
+    if launches != goals * (3 + 10 * T) or by_kernel != expected:
+        raise AssertionError(f"closed_loop: {launches} flash calls {by_kernel} over {goals} "
+                             f"goals, expected {expected}")
+    for states in goal_states:
+        if len(states) != 1 or states[0].shape != (8,) or not np.isfinite(states[0]).all():
+            raise AssertionError(f"closed_loop: bad goal {states}")
+    goal_p50, goal_q1, goal_q3 = quartiles(goal_times)
+
+    goal_parts = {"mesh_extraction": [], "vertex_sampling": [], "backprojection": [],
+                  "prediction": []}
+    for _ in range(parts_reps):
+        holder = {}
+        goal_parts["mesh_extraction"].append(host_ms(
+            lambda: holder.update(mesh=policy.mesh_vertices())))
+        goal_parts["vertex_sampling"].append(host_ms(
+            lambda: policy.sample_vertices(*holder["mesh"])))
+        goal_parts["backprojection"].append(host_ms(lambda: policy.camera_inputs(env)))
+        goal_parts["prediction"].append(host_ms(lambda: policy.predict(batch)))
+    goal_profile = profile(lambda: policy.get_new_goal(env), goal_p50,
+                           model.encoder.feature_extractor)
+    set_default_attention_impl("eager")
+
+    def summary(times):
+        p50, q1, q3 = quartiles(times)
+        return dict(p50_ms=p50, q1_ms=q1, q3_ms=q3)
+
+    phase("closed_loop", model="rgbd_and_mesh", cameras=len(cameras), image=IMAGE,
+          map_grid=list(cfg.grid_shape), map_feature_dim=MAP_FEATURES, map_pages=MAP_PAGES,
+          live_pages=int(policy.mapper.states[0].num_pages),
+          surface_crossings=policy.mapper.last_crossing_count,
+          surface_vertices=len(vertices), mesh_budget=policy._mesh_budget,
+          vertices_sampled=VERTICES, image_valid_share=image_valid_share,
+          sampler="ddim10", goals=goals, launches=launches, launches_by_kernel=by_kernel,
+          launches_per_goal=launches // goals, flash_vs_eager_max_abs_err=err,
+          step=dict(p50_ms=step_p50, q1_ms=step_q1, q3_ms=step_q3, reps=steps,
+                    parts={k: summary(v) for k, v in parts.items()}, profile=step_profile),
+          goal=dict(p50_ms=goal_p50, q1_ms=goal_q1, q3_ms=goal_q3, reps=goals,
+                    parts={k: summary(v) for k, v in goal_parts.items()},
+                    profile=goal_profile))
+    return by_kernel
+
+
 def main() -> int:
     import torch
 
@@ -594,6 +1013,10 @@ def main() -> int:
         path_launches = run_slice(data_type, reps)
         for kernel, n in path_launches.items():
             launches[kernel] = launches.get(kernel, 0) + n
+    check_mapper()
+    measure_fusion()
+    for kernel, n in run_closed_loop().items():
+        launches[kernel] = launches.get(kernel, 0) + n
 
     # Each kernel at the flagship shape it serves most; beside it, its time
     # at the mesh path's shape, which the line reported before the flagship

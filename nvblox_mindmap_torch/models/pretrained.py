@@ -13,21 +13,25 @@ the flax-layout ViT tree, optionally with the input normalization
 - ``load_backbone_into_model``: the checkpoint into a ``DiffuserActor``'s
   ``encoder.feature_extractor``, strictly (the counterpart of the JAX
   package's ``graft_backbone_into_model_params``).
+- ``make_feature_fn``: the mapping side's (H, W, 3) -> (h, w, F) feature
+  image at the integration resolution; ``backbone_feature_fn`` wraps a
+  backbone module already built.
 
-The mapping side's ``make_feature_fn`` waits for the mapping slice; CLIP
-checkpoints wait for the CLIP extractor.
+CLIP checkpoints wait for the CLIP extractor.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 from torch import nn
 
 from nvblox_mindmap_torch.device import DeviceLike, resolve_device
 from nvblox_mindmap_torch.models.feature_extractors import (
     FeatureExtractorType,
     make_feature_extractor,
+    resize_bilinear,
 )
 from nvblox_mindmap_torch.models.weight_conversion import load_variables_npz
 from nvblox_mindmap_torch.models.weights import load_flax_params
@@ -129,3 +133,55 @@ def load_backbone_into_model(
             "matches the converted weights"
         )
     load_flax_params(extractor, pretrained)
+
+
+FeatureFn = Callable[[object], torch.Tensor]
+
+
+def _rgb_on(rgb, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(rgb, device=device).to(torch.float32)
+
+
+def backbone_feature_fn(backbone: nn.Module, output_size: Tuple[int, int]) -> FeatureFn:
+    """(H, W, 3) RGB in [0, 1] -> (output_size, F) fp32 features on the
+    backbone's device: the backbone's feature image, bilinearly upscaled to
+    the integration resolution."""
+    device = next(backbone.parameters()).device
+
+    @torch.no_grad()
+    def feature_fn(rgb) -> torch.Tensor:
+        feats = backbone(_rgb_on(rgb, device)[None])
+        return resize_bilinear(feats, output_size)[0]
+
+    return feature_fn
+
+
+def make_feature_fn(
+    feature_type: FeatureExtractorType,
+    output_size: Tuple[int, int],
+    backbone_weights: Optional[str] = None,
+    feature_image_size: Tuple[int, int] = (32, 32),
+    device: DeviceLike = None,
+) -> FeatureFn:
+    """(H, W, 3) [0, 1] -> (output_size, F) feature extractor for mapping,
+    on ``device`` (default ``cuda``; raises when CUDA is absent and no device
+    is given).
+
+    The mapper integrates features at ``output_size`` (upstream 512x512).
+    RGB needs no weights: the image itself, resized. Every other type needs
+    a converted checkpoint and runs its ViT at ``feature_image_size``
+    patches, then upscales.
+    """
+    device = resolve_device(device)
+    feature_type = FeatureExtractorType(feature_type)
+    if feature_type == FeatureExtractorType.RGB:
+
+        @torch.no_grad()
+        def rgb_fn(rgb) -> torch.Tensor:
+            return resize_bilinear(_rgb_on(rgb, device)[None], output_size)[0]
+
+        return rgb_fn
+
+    require_backbone_weights(feature_type, backbone_weights, "feature mapping")
+    backbone = build_backbone(feature_type, backbone_weights, feature_image_size, device)
+    return backbone_feature_fn(backbone, output_size)

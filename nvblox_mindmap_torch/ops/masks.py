@@ -24,12 +24,13 @@ def erode_mask(mask: torch.Tensor, kernel_size: int = 3, iterations: int = 1) ->
     return ~(inv[0, 0] > 0)
 
 
-def get_border_mask(shape, border_percent: float) -> torch.Tensor:
-    """(H, W) bool mask, False on a border of ``border_percent`` of each side."""
+def get_border_mask(shape, border_percent: float, device=None) -> torch.Tensor:
+    """(H, W) bool mask on ``device``, False on a border of ``border_percent``
+    of each side."""
     height, width = shape[:2]
     border_h = int(border_percent * 0.01 * height)
     border_w = int(border_percent * 0.01 * width)
-    mask = torch.ones((height, width), dtype=torch.bool)
+    mask = torch.ones((height, width), dtype=torch.bool, device=device)
     if border_h > 0 and border_w > 0:
         mask[:border_h, :] = False
         mask[-border_h:, :] = False

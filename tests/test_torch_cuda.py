@@ -1,4 +1,6 @@
-"""Torch port on the card: the CUDA kernels against their plain version.
+"""Torch port on the card: the CUDA kernels against their plain version,
+and the plain-torch paths (ViT, image encoding, the mapper) on the card
+against the same code on the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc, and skips elsewhere. This file
 imports neither JAX nor the JAX package, so it runs on a machine without
@@ -12,7 +14,8 @@ accuracy); model outputs atol 5e-3 flash vs eager, the JAX package's own
 swap-test bound. The bf16 ViT on the card vs the port on the CPU: mean abs
 <= 1e-2 and max abs <= 0.1, the bound that holds the port to the JAX
 package (``tests/test_torch_image_path.py``): the two round bf16 at other
-places.
+places. The mapper: fp32 fields and surface vertices 1e-5, fp16 pools and
+surface features 1e-3 (``tests/test_torch_mapping.py``'s bounds).
 """
 import numpy as np
 import pytest
@@ -290,3 +293,54 @@ def test_encode_images_on_cuda_matches_cpu(gen):
     _assert_bf16_close(feats_c, feats)
     torch.testing.assert_close(pos_c.cpu(), pos, rtol=0, atol=1e-5)
     assert torch.equal(mask_c.cpu(), mask) and not bool(mask.all())
+
+
+@pytest.mark.parametrize("include_dynamic", [False, True])
+def test_mapper_on_cuda_matches_cpu(gen, include_dynamic):
+    """Three frames of a relief at 0.05 m voxels, 48x48 depth and a 96x96
+    feature image, through the recipe with a dynamic mask, then the
+    surface: the card equals the CPU (fp32 1e-5, fp16 pools 1e-3; all
+    elementwise IEEE ops and integer scans)."""
+    from nvblox_mindmap_torch.mapping.constants import MappingConfig
+    from nvblox_mindmap_torch.mapping.mapper import (
+        Mapper,
+        get_vertices_and_features,
+        nvblox_integrate,
+    )
+    from nvblox_mindmap_torch.mapping.voxel_grid import state_to_numpy
+
+    cfg = MappingConfig(voxel_size_m=0.05, aabb_min_m=(-0.6, -0.6, 0.4),
+                        aabb_max_m=(0.6, 0.6, 1.6), min_integration_distance_m=0.1,
+                        feature_dim=8, max_feature_pages=128,
+                        static_mask_erosion_iterations=1, dynamic_mask_erosion_iterations=1,
+                        valid_depth_mask_erosion_iterations=1, dynamic_class_labels=("robot",))
+    mappers = {d: (Mapper.dual(cfg, device=d) if include_dynamic else Mapper({0: cfg}, device=d))
+               for d in ("cpu", "cuda")}
+    rng = np.random.default_rng(1)
+    size = 48
+    K = np.asarray([[40.0, 0, 24], [0, 40.0, 24], [0, 0, 1]], np.float32)
+    vv, uu = np.mgrid[0:size, 0:size] / size
+    for i in range(3):
+        depth = (1.0 + 0.15 * np.sin(5 * uu + i) * np.cos(3 * vv)).astype(np.float32)
+        depth[rng.uniform(size=depth.shape) < 0.05] = 0.0
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = rng.uniform(-0.05, 0.05, 3)
+        feats = rng.normal(size=(2 * size, 2 * size, 8)).astype(np.float32)
+        rgb = rng.uniform(size=(size, size, 3)).astype(np.float32)
+        robot = np.zeros((size, size), bool)
+        robot[10:30, 5 + 5 * i:20 + 5 * i] = True
+        for mapper in mappers.values():
+            mapper.decay()
+            nvblox_integrate(mapper, cfg, depth, feats, K, T, rgb, robot, include_dynamic)
+    for mid in mappers["cpu"].states:
+        ref = state_to_numpy(mappers["cpu"].states[mid])
+        out = state_to_numpy(mappers["cuda"].states[mid])
+        for name, value in ref.items():
+            atol = 1e-3 if value.dtype == np.float16 else 1e-5
+            np.testing.assert_allclose(out[name].astype(np.float64), value.astype(np.float64),
+                                       atol=atol, rtol=0, err_msg=name)
+        v, f = get_vertices_and_features(mappers["cpu"], mid, remove_zero_features=True)
+        vc, fc = get_vertices_and_features(mappers["cuda"], mid, remove_zero_features=True)
+        assert vc.shape == v.shape and len(v) > 50
+        np.testing.assert_allclose(vc, v, atol=1e-5, rtol=0)
+        np.testing.assert_allclose(fc, f, atol=1e-3, rtol=0)

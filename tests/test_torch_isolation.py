@@ -1,13 +1,14 @@
 """The torch port stands alone: no JAX, no flax, nothing of the JAX package.
 
 - A subprocess that blocks ``jax`` imports the port and runs small mesh and
-  rgbd_and_mesh keypose predictions on the CPU, then checks which modules
-  were loaded.
+  rgbd_and_mesh keypose predictions and two mapping steps plus a goal of
+  the closed-loop policy on the CPU, then checks which modules were loaded.
 - A scan of the port's sources and ``chip_smoke.py`` for such imports.
 - Entry points called without a device on a machine without CUDA raise
   rather than fall back to the CPU.
 """
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -64,6 +65,45 @@ prepared = prepare_inputs(batch, bounds, cfg, device="cpu")
 traj, _, _ = sample_trajectory(model, prepared, bounds,
                                generator=torch.Generator().manual_seed(0), **kw)
 assert traj.shape == (1, 1, 1, 8) and bool(torch.isfinite(traj).all())
+# Live mapping and the closed-loop policy: two sim steps into a 0.05 m map,
+# then a goal from the mesh model above.
+from nvblox_mindmap_torch.closed_loop.environment import CameraFrame, EnvironmentBase
+from nvblox_mindmap_torch.closed_loop.policies import NvbloxDiffuserActorPolicy
+from nvblox_mindmap_torch.embodiments.codecs import ArmEmbodiment
+from nvblox_mindmap_torch.mapping.constants import MappingConfig
+
+
+class Wall(EnvironmentBase):
+    semantic_id_to_class = {1: "robot"}
+
+    def get_policy_state(self):
+        return np.asarray([0.5, 0.5, 0.5, 1, 0, 0, 0, 0], np.float32)
+
+    def get_cameras(self):
+        seg = np.zeros((32, 32), np.int32)
+        seg[:8, :8] = 1
+        K = np.asarray([[32.0, 0, 16], [0, 32.0, 16], [0, 0, 1]], np.float32)
+        return {"cam": CameraFrame(np.full((32, 32, 3), 0.5, np.float32),
+                                   np.full((32, 32), 0.8, np.float32), K,
+                                   np.asarray([0.5, 0.5, 0, 1, 0, 0, 0]), seg)}
+
+
+cfg = DiffuserActorConfig(embedding_dim=24, num_attn_heads=4, vertex_feature_dim=3,
+                          diffusion_timesteps=10, fps_subsampling_factor=4)
+mapping = MappingConfig(voxel_size_m=0.05, aabb_min_m=(0, 0, 0), aabb_max_m=(1, 1, 1),
+                        min_integration_distance_m=0.1, feature_dim=3, max_feature_pages=64,
+                        upscaled_feature_image_size=(32, 32), dynamic_class_labels=("robot",),
+                        static_mask_erosion_iterations=1, valid_depth_mask_erosion_iterations=1)
+policy = NvbloxDiffuserActorPolicy(DiffuserActor(cfg, device="cpu"), ArmEmbodiment(), mapping,
+                                   bounds, num_vertices_to_sample=32, num_inference_steps=3,
+                                   scheduler_kind="ddim", stochastic_sampling=False,
+                                   device="cpu")
+env = Wall()
+policy.step(env)
+policy.step(env)
+goals = policy.get_new_goal(env)
+assert len(goals) == 1 and goals[0].shape == (8,) and np.isfinite(goals[0]).all()
+assert policy.mapper.last_crossing_count > 32
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in {FORBIDDEN})
 print("LOADED", loaded)
@@ -110,7 +150,12 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
         DiffuserActorConfig,
         prepare_inputs,
     )
-    from nvblox_mindmap_torch.models.pretrained import build_backbone
+    from nvblox_mindmap_torch.closed_loop.policies import NvbloxDiffuserActorPolicy
+    from nvblox_mindmap_torch.embodiments.codecs import ArmEmbodiment
+    from nvblox_mindmap_torch.mapping.constants import MapperId, MappingConfig
+    from nvblox_mindmap_torch.mapping.mapper import Mapper
+    from nvblox_mindmap_torch.mapping.voxel_grid import create_state
+    from nvblox_mindmap_torch.models.pretrained import build_backbone, make_feature_fn
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = DiffuserActorConfig(embedding_dim=24, num_attn_heads=4, vertex_feature_dim=8)
@@ -121,9 +166,22 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
                        np.zeros((2, 3), np.float32), cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_backbone("rgb", feature_image_size=(4, 4))
+    mapping = MappingConfig(voxel_size_m=0.1, aabb_min_m=(0, 0, 0), aabb_max_m=(1, 1, 1),
+                            feature_dim=3, max_feature_pages=4)
+    bounds = np.asarray([[0, 0, 0], [1, 1, 1]], np.float32)
+    for entry in (lambda: Mapper({MapperId.STATIC: mapping}), lambda: Mapper.dual(mapping),
+                  lambda: create_state(mapping), lambda: make_feature_fn("rgb", (8, 8))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+    model = DiffuserActor(dataclasses.replace(cfg, vertex_feature_dim=3), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NvbloxDiffuserActorPolicy(model, ArmEmbodiment(), mapping, bounds)
     assert DiffuserActor(cfg, device="cpu").device == torch.device("cpu")
     rgb = build_backbone("rgb", feature_image_size=(4, 4), device="cpu")
     assert rgb(torch.zeros(1, 16, 16, 3)).shape == (1, 4, 4, 3)
+    policy = NvbloxDiffuserActorPolicy(model, ArmEmbodiment(), mapping, bounds, device="cpu")
+    assert policy.mapper.states[MapperId.STATIC].tsdf.device == torch.device("cpu")
+    assert make_feature_fn("rgb", (8, 8), device="cpu")(np.zeros((4, 4, 3))).shape == (8, 8, 3)
 
 
 def test_chip_smoke_refuses_without_cuda():
