@@ -45,7 +45,19 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    back-projection, prediction), profiles one of each, checks that every
    goal launches 3 + 10*T flash calls and that a goal through the kernels
    matches eager attention (phase ``closed_loop``);
-8. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}`` as
+8. trains the flagship on the card (phase ``train``): ``Trainer`` at
+   ``bench.py``'s train width (``rgbd_and_mesh``, B = 32, random weights),
+   with the flash impl installed as the process-wide default. After one
+   update every trainable parameter the path reads gets a finite, non-zero
+   gradient; 2 warm-up and 12 timed steps launch no flash kernel and leave
+   the frozen backbone bit-equal; their p50, samples/s, device busy and
+   idle share, peak memory and FLOPs (``FlopCounterMode``); each eval batch (``evaluate_nsteps``, DDIM-10)
+   launches 3 + 2*10 split and 8*10 tile calls; ``run_training`` saves a
+   checkpoint, a new trainer loads it, and one step from it equals one step
+   of the trainer that went on; 30 steps on one fixed batch, noise and
+   timesteps lower the loss; one step of the mesh path at full width and
+   B = 2 gives the card's loss and gradients on the CPU too;
+9. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}`` as
    the last line.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -56,6 +68,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -88,12 +101,26 @@ WORKSPACE = [[-0.37, -0.75, -0.13], [0.95, 0.75, 0.65]]
 HOLE_SHARE = 0.1
 IMAGE_VALID_ATOL = 0.05
 TRAJ_ATOL = 5e-3
+TRAIN_BATCH = 32  # bench.py's train_step_ms_b32_flagship
 DENOISE_ATOL = 1e-4  # fp32 eps, kernel vs einsum/softmax summation order
 KERNEL_ATOL = 2e-5
 
 
 def phase(name, **fields):
     print(json.dumps({"phase": name, **fields}), flush=True)
+
+
+def flash_counts():
+    from nvblox_mindmap_torch.ops import flash_attention as fa
+
+    return dict(fa.KERNEL_LAUNCHES)
+
+
+def reset_flash_counts():
+    from nvblox_mindmap_torch.ops import flash_attention as fa
+
+    fa.flash_attention.launches = 0
+    fa.KERNEL_LAUNCHES.update(dict.fromkeys(fa.KERNELS, 0))
 
 
 def gpu_time_ms(fn, reps=20, iters=5):
@@ -238,7 +265,12 @@ def check_kernels():
     # over its 4096 context tokens and 1 + 819 FPS tokens. D=9: the
     # committed fixtures (E=72): 512 vertices, 128 FPS tokens.
     flagship_self = 1 + CONTEXT["rgbd_and_mesh"] // FPS_FACTOR
-    shapes = []
+    # The flagship's shapes at the train batch, which every eval batch runs.
+    shapes = [
+        ("flagship_encoder_cross", TRAIN_BATCH, HEADS, 3, CONTEXT["rgbd_and_mesh"], 15, False),
+        ("flagship_denoiser_cross", TRAIN_BATCH, HEADS, 1, CONTEXT["rgbd_and_mesh"], 15, True),
+        ("flagship_self", TRAIN_BATCH, HEADS, flagship_self, flagship_self, 15, True),
+    ]
     for B in (1, 8):
         shapes += [
             ("flagship_encoder_cross", B, HEADS, 3, CONTEXT["rgbd_and_mesh"], 15, False),
@@ -515,8 +547,7 @@ def run_slice(data_type, reps):
         rest = apply_inference_settings(convert_to_flash_attention())
         if rest:
             raise AssertionError(f"unexpected sampler settings {rest}")
-        fa.flash_attention.launches = 0
-        fa.KERNEL_LAUNCHES.update(dict.fromkeys(fa.KERNELS, 0))
+        reset_flash_counts()
         traj, head_yaw, weights = predict()
         torch.cuda.synchronize()
         launches = fa.flash_attention.launches
@@ -925,8 +956,7 @@ def run_closed_loop(steps=8, goals=6, parts_reps=5):
         raise AssertionError(f"closed_loop: flash vs eager goal {err} > {TRAJ_ATOL}")
 
     # The main path: whole goals through the kernels, counted.
-    fa.flash_attention.launches = 0
-    fa.KERNEL_LAUNCHES.update(dict.fromkeys(fa.KERNELS, 0))
+    reset_flash_counts()
     goal_times, goal_states = [], []
     for _ in range(goals):
         goal_times.append(host_ms(lambda: goal_states.append(policy.get_new_goal(env))))
@@ -978,6 +1008,272 @@ def run_closed_loop(steps=8, goals=6, parts_reps=5):
     return by_kernel
 
 
+# --------------------------------------------------------------------------
+# Training
+# --------------------------------------------------------------------------
+
+TRAIN_TIMED_STEPS = 12
+LEARN_STEPS = 30
+EVAL_BATCHES = 2
+EVAL_STEPS = 10  # DDIM-10, TrainerConfig's eval sampler
+# Card vs CPU, one train step of the mesh path (fp32 on both, no TF32; the
+# summation orders differ): the loss within TRAIN_LOSS_RTOL relative, each
+# gradient within TRAIN_GRAD_RTOL of its largest entry on the CPU.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-3
+# A step from the reloaded checkpoint vs the same step of the trainer that
+# went on: the same loss; parameters within RESUME_ATOL (the backward's
+# atomic scatter-adds may sum in another order).
+RESUME_ATOL = 1e-6
+UNREAD_PARAMETERS = {"encoder.goal_gripper_embed"}  # no keypose path reads it
+
+
+def train_batch(B, data_type, seed):
+    """``make_batch`` plus a ground-truth keypose inside the workspace."""
+    import numpy as np
+
+    batch = make_batch(B, data_type, seed)
+    rng = np.random.default_rng(seed + 10_000)
+    quat = rng.normal(size=(B, 1, 1, 4))
+    quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+    batch["gt_gripper_pred"] = np.concatenate(
+        [rng.uniform(-0.3, 0.6, (B, 1, 1, 3)), quat, rng.integers(0, 2, (B, 1, 1, 1))],
+        -1).astype(np.float32)
+    return batch
+
+
+class PoolLoader:
+    """Batches of ``batch_size`` samples from a host pool, in the order of a
+    ``WeightedEpochSampler``: what ``run_training`` iterates."""
+
+    def __init__(self, pool, batch_size, sampler):
+        self.pool, self.batch_size, self.sampler = pool, batch_size, sampler
+
+    def __len__(self):
+        return len(self.sampler) // self.batch_size
+
+    def __iter__(self):
+        order = list(self.sampler)
+        for i in range(len(self)):
+            idx = order[i * self.batch_size:(i + 1) * self.batch_size]
+            yield {k: v[idx] for k, v in self.pool.items()}
+
+
+def check_train_card_vs_cpu():
+    """One train step of the mesh path at full width, B = 2, on the card and
+    on the CPU from the same weights, batch, noise and timesteps. Feature-
+    space FPS is a chain of argmaxes whose near-ties an ulp can flip
+    (ROADMAP.md), so the CPU step takes the card's picks; how many of its
+    own picks differ is reported."""
+    import numpy as np
+    import torch
+
+    from nvblox_mindmap_torch.models import encoder
+    from nvblox_mindmap_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = model_config("mesh")
+    bounds = np.asarray(WORKSPACE, np.float32)
+    trainers = {d: Trainer(cfg, TrainerConfig(), bounds, device=d) for d in ("cuda", "cpu")}
+    for trainer in trainers.values():
+        trainer.init_state()
+    batch = train_batch(2, "mesh", seed=5)
+    rng = np.random.default_rng(6)
+    noise = torch.from_numpy(rng.normal(size=(2, 1, 1, 9)).astype(np.float32))
+    timesteps = torch.from_numpy(rng.integers(0, cfg.diffusion_timesteps, 2))
+    real_fps = encoder.farthest_point_sampling
+    picks = {}
+
+    def record(points, k, start_idx=0):
+        picks["card"] = real_fps(points, k, start_idx)
+        return picks["card"]
+
+    def replay(points, k, start_idx=0):
+        picks["cpu"] = real_fps(points, k, start_idx)
+        return picks["card"].cpu()
+
+    losses = {}
+    try:
+        for device, fps in (("cuda", record), ("cpu", replay)):
+            encoder.farthest_point_sampling = fps
+            losses[device] = trainers[device].compute_loss_and_grads(
+                batch, 0, noise.to(device), timesteps.to(device))
+    finally:
+        encoder.farthest_point_sampling = real_fps
+    card, host = (float(losses[d]["total"]) for d in ("cuda", "cpu"))
+    loss_err = abs(card - host) / abs(host)
+    worst, worst_name = 0.0, None
+    params = {d: dict(t.model.named_parameters()) for d, t in trainers.items()}
+    for name, p in params["cpu"].items():
+        if p.grad is None:
+            continue
+        g = params["cuda"][name].grad.cpu()
+        err = float((g - p.grad).abs().max() / p.grad.abs().max().clamp_min(1e-30))
+        if err > worst:
+            worst, worst_name = err, name
+    fps_differ = int((picks["card"].cpu() != picks["cpu"]).sum())
+    if not (loss_err <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"train card vs CPU: loss {loss_err}, gradient {worst_name} {worst}")
+    return dict(B=2, loss_card=card, loss_cpu=host, loss_rel_err=loss_err,
+                grad_max_rel_err=worst, grad_worst=worst_name, loss_rtol=TRAIN_LOSS_RTOL,
+                grad_rtol=TRAIN_GRAD_RTOL, fps_picks=int(picks["card"].numel()),
+                fps_picks_differing_on_cpu=fps_differ)
+
+
+def run_training_phase(smi):
+    """Phase 8: the flagship trained on the card. Returns each kernel's
+    launches over the main path (train steps, then eval batches)."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from nvblox_mindmap_torch.data.sampler import WeightedEpochSampler
+    from nvblox_mindmap_torch.models.converter import (
+        apply_inference_settings,
+        convert_to_flash_attention,
+    )
+    from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
+    from nvblox_mindmap_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = model_config("rgbd_and_mesh")
+    bounds = np.asarray(WORKSPACE, np.float32)
+    B = TRAIN_BATCH
+    ckpt_dir = os.path.join(ROOT, "nvblox_mindmap_torch", "build", "train_checkpoints")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # run_training below takes steps 200 and 201, then evaluates and saves.
+    tcfg = TrainerConfig(batch_size=B, train_iters=202, checkpoint_dir=ckpt_dir, val_freq=2,
+                         skip_train_val=True, num_batches_per_test_eval=1,
+                         eval_num_inference_steps=EVAL_STEPS)
+    trainer = Trainer(cfg, tcfg, bounds, device="cuda")
+    model, optimizer = trainer.init_state()
+    host = [train_batch(B, "rgbd_and_mesh", seed) for seed in (0, 1)]
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in b.items()} for b in host]
+    backbone = model.encoder.feature_extractor
+    backbone_before = [p.detach().clone() for p in backbone.parameters()]
+    named = dict(model.named_parameters())
+    trainable = {n for n, p in named.items() if p.requires_grad}
+    sizes = dict(trainable_parameters=sum(named[n].numel() for n in trainable),
+                 frozen_parameters=sum(p.numel() for p in backbone.parameters()))
+    # Inference's flash default stays installed: the train step must not use it.
+    if apply_inference_settings(convert_to_flash_attention()):
+        raise AssertionError("unexpected sampler settings")
+
+    # The main path: train steps, then eval batches.
+    reset_flash_counts()
+    for step in (0, 1):  # warm-up
+        trainer.train_one_step(batches[step % 2], step)
+    # At init AdaLN's zero modulation cuts the gradient of everything that
+    # only conditions it (the timestep and gripper-history encoders), as in
+    # the JAX package; after an update every read parameter must get one.
+    losses = trainer.compute_loss_and_grads(batches[0], 2)
+    no_grad = {n for n in trainable if named[n].grad is None}
+    if no_grad != UNREAD_PARAMETERS:
+        raise AssertionError(f"train: no gradient for {sorted(no_grad)}")
+    bad = [n for n in trainable - no_grad
+           if not bool(torch.isfinite(named[n].grad).all()) or not bool(named[n].grad.any())]
+    if bad or not bool(torch.isfinite(losses["total"])):
+        raise AssertionError(f"train: non-finite or zero gradients {bad}")
+    optimizer.step()
+    optimizer.zero_grad()
+    torch.cuda.reset_peak_memory_stats()
+    times, step_losses = [], []
+    for step in range(3, 3 + TRAIN_TIMED_STEPS):
+        times.append(host_ms(lambda: step_losses.append(
+            float(trainer.train_one_step(batches[step % 2], step)["total"]))))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    train_counts = flash_counts()
+    if any(train_counts.values()):
+        raise AssertionError(f"train steps launched flash kernels {train_counts}")
+    if not all(np.isfinite(step_losses)):
+        raise AssertionError(f"train: losses {step_losses}")
+    p50, q1, q3 = quartiles(times)
+    prof = profile(lambda: trainer.train_one_step(batches[0], 100), p50,
+                   trainer.model.encoder.feature_extractor)
+    with FlopCounterMode(display=False) as counter:
+        trainer.train_one_step(batches[1], 101)
+    flops = counter.get_total_flops()
+    if not all(torch.equal(a, b) for a, b in zip(backbone_before, backbone.parameters())):
+        raise AssertionError("train: the frozen backbone changed")
+    del model, optimizer, named, backbone, backbone_before
+
+    # Eval batches through both kernels: 3 + 2*T split and 8*T tile each.
+    per_batch = {"flash_attention_split": 3 + 2 * EVAL_STEPS,
+                 "flash_attention_tile": 8 * EVAL_STEPS}
+    mean_loss, metrics = trainer.evaluate_nsteps(batches, 102, EVAL_BATCHES, "val")
+    launches = flash_counts()
+    if launches != {k: EVAL_BATCHES * n for k, n in per_batch.items()}:
+        raise AssertionError(f"eval: {launches} flash launches for {EVAL_BATCHES} batches")
+    if not (np.isfinite(mean_loss) and all(np.isfinite(v).all() for v in metrics.values())):
+        raise AssertionError(f"eval: loss {mean_loss}, metrics {metrics}")
+    eval_times = []
+    for i in range(6):
+        reset_flash_counts()
+        eval_times.append(host_ms(
+            lambda: trainer.evaluate_nsteps([batches[i % 2]], 103 + i, 1, "val")))
+        if flash_counts() != per_batch:
+            raise AssertionError(f"eval batch: {flash_counts()} flash launches")
+        for kernel, n in flash_counts().items():
+            launches[kernel] += n
+    eval_p50, eval_q1, eval_q3 = quartiles(eval_times)
+
+    # run_training: 2 steps from a sampled pool, then an eval and best/last
+    # checkpoints; a new trainer resumes from last.ckpt.
+    pool = {k: np.concatenate([host[0][k], host[1][k]]) for k in host[0]}
+    sampler = WeightedEpochSampler(np.ones(2 * B), replacement=False, seed=0)
+    reset_flash_counts()
+    best_loss = trainer.run_training(PoolLoader(pool, B, sampler), [batches[0]], start_iter=200)
+    if flash_counts() != per_batch:
+        raise AssertionError(f"run_training: {flash_counts()} flash launches")
+    for kernel, n in flash_counts().items():
+        launches[kernel] += n
+    resumed = Trainer(cfg, tcfg, bounds, device="cuda")
+    step, loaded_best = resumed.load_checkpoint(os.path.join(ckpt_dir, "last.ckpt"))
+    if (step, loaded_best) != (201, best_loss):
+        raise AssertionError(f"resume: iter {step}, best {loaded_best}, expected 201, {best_loss}")
+    went_on = float(trainer.train_one_step(batches[1], step + 1)["total"])
+    from_ckpt = float(resumed.train_one_step(batches[1], step + 1)["total"])
+    with torch.no_grad():
+        resume_err = max(float((a - b).abs().max()) for a, b in
+                         zip(trainer.model.parameters(), resumed.model.parameters()))
+    if went_on != from_ckpt or not resume_err <= RESUME_ATOL:
+        raise AssertionError(f"resume: loss {from_ckpt} vs {went_on}, parameters {resume_err}")
+    ckpt_mb = os.path.getsize(os.path.join(ckpt_dir, "last.ckpt")) / 1e6
+    del resumed
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # Learning: one batch, fixed noise and timesteps, a fresh model.
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    noise = torch.randn((B, 1, 1, 9), generator=gen, device="cuda")
+    timesteps = torch.randint(0, cfg.diffusion_timesteps, (B,), generator=gen, device="cuda")
+    learner = Trainer(cfg, tcfg, bounds, device="cuda")
+    learner.init_state()
+    curve = [float(learner.train_one_step(batches[0], s, noise, timesteps)["total"])
+             for s in range(LEARN_STEPS + 1)]
+    if not curve[-1] < curve[0]:
+        raise AssertionError(f"learning: loss {curve[0]} -> {curve[-1]} after {LEARN_STEPS} steps")
+    del learner, trainer
+    set_default_attention_impl("eager")
+    torch.cuda.empty_cache()
+
+    card_vs_cpu = check_train_card_vs_cpu()
+    phase("train", card=smi, model="rgbd_and_mesh", batch=B, cameras=CAMERAS, image=IMAGE,
+          vertices=VERTICES, context_tokens=CONTEXT["rgbd_and_mesh"], **sizes,
+          step=dict(p50_ms=p50, q1_ms=q1, q3_ms=q3, reps=TRAIN_TIMED_STEPS,
+                    samples_per_s=B / p50 * 1e3, peak_memory_gb=peak_gb,
+                    flops=flops, tflops_per_s=flops / p50 / 1e9,
+                    fp32_peak_share=flops / p50 * 1e3 / PEAK_FP32_FLOPS,
+                    flash_launches=train_counts, losses=step_losses, profile=prof),
+          eval_batch=dict(p50_ms=eval_p50, q1_ms=eval_q1, q3_ms=eval_q3, reps=len(eval_times),
+                          sampler=f"ddim{EVAL_STEPS}", launches_per_batch=per_batch,
+                          mean_loss=mean_loss, rot_error_deg=float(metrics["rot_error_deg"]),
+                          distance_m=float(metrics["distance_m"])),
+          resume=dict(iter=step, best_loss=best_loss, loss=from_ckpt,
+                      parameter_max_abs_err=resume_err, checkpoint_mb=ckpt_mb),
+          learning=dict(steps=LEARN_STEPS, first_loss=curve[0], last_loss=curve[-1],
+                        curve=curve[::5]),
+          backbone_bit_equal=True, card_vs_cpu=card_vs_cpu)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1016,6 +1312,8 @@ def main() -> int:
     check_mapper()
     measure_fusion()
     for kernel, n in run_closed_loop().items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    for kernel, n in run_training_phase(smi).items():
         launches[kernel] = launches.get(kernel, 0) + n
 
     # Each kernel at the flagship shape it serves most; beside it, its time

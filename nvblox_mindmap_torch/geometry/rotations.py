@@ -1,4 +1,5 @@
-"""Rotation conversions in torch: the subset the keypose path uses.
+"""Rotation conversions in torch: the subset the keypose path and the
+training metrics use.
 
 Port of ``nvblox_mindmap_tpu/geometry/rotations.py`` with the same
 conventions: quaternions are real-part-first (wxyz); the 6D representation
@@ -40,6 +41,18 @@ def quaternion_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def quaternion_invert(q: torch.Tensor) -> torch.Tensor:
     """Inverse of a unit quaternion (conjugate)."""
     return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
+def quaternion_to_axis_angle(q: torch.Tensor) -> torch.Tensor:
+    """Axis-angle (..., 3) of wxyz quaternions; below an angle of 1e-6 the
+    sin(a/2)/a ratio is its Taylor series, as in the JAX package."""
+    norms = torch.linalg.norm(q[..., 1:], dim=-1, keepdim=True)
+    half = torch.atan2(norms, q[..., :1])
+    angles = 2 * half
+    small = torch.abs(angles) < 1e-6
+    safe_angles = torch.where(small, torch.ones_like(angles), angles)
+    ratio = torch.where(small, 0.5 - (angles * angles) / 48, torch.sin(half) / safe_angles)
+    return q[..., 1:] / ratio
 
 
 def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:

@@ -12,11 +12,16 @@ Port of the non-language inference path of
   then mesh-vertex tokens, gripper-history queries, feature-space FPS;
 - ``DiffuserActor.denoise``: one ``DiffusionHead`` pass;
 - ``sample_trajectory``: DDPM or DDIM reverse diffusion over the denoiser,
-  then unnormalize (and restore the absolute pose in relative mode).
+  then unnormalize (and restore the absolute pose in relative mode);
+- ``diffusion_train_loss``: the training objective, epsilon prediction at a
+  random timestep (``DiffuserActor.forward`` is its training-shaped pass).
+
+The model is built with the flax initialisers (``layers.init_as_flax_``), so
+a model trained from scratch starts from the JAX package's distribution.
 
 The JAX sampler is one ``lax.scan``; here it is a Python loop of eager
-steps. Its noise comes either from the caller (``init_noise`` and
-``step_noise``, which parity tests take from the JAX key splits) or from a
+steps. Its noise, and the training loss's noise and timesteps, come either
+from the caller (parity tests take them from the JAX key splits) or from a
 ``torch.Generator``.
 """
 from __future__ import annotations
@@ -36,6 +41,8 @@ from nvblox_mindmap_torch.geometry.rotations import (
 from nvblox_mindmap_torch.models.diffusion_head import DiffusionHead
 from nvblox_mindmap_torch.models.encoder import Encoder
 from nvblox_mindmap_torch.models.feature_extractors import FeatureExtractorType
+from nvblox_mindmap_torch.models.layers import init_as_flax_
+from nvblox_mindmap_torch.models.loss import LossWeights, compute_loss
 from nvblox_mindmap_torch.models.normalization import (
     normalize_pointcloud,
     normalize_pos,
@@ -56,6 +63,8 @@ class DiffuserActorConfig:
     infers it from the first batch; torch sizes ``reconstruction_encoder``
     up front): 768 for RADIO features, 3 for the RGB fixtures. ``data_type``
     defaults to ``"mesh"`` here (the JAX default is ``"rgbd_and_mesh"``).
+    ``backbone_chunk_images`` runs the frozen backbone over chunks of that
+    many images (``Encoder.encode_images``; None = one call).
     """
 
     embedding_dim: int = 120
@@ -68,6 +77,7 @@ class DiffuserActorConfig:
     feature_image_size: Tuple[int, int] = (32, 32)
     # CLS/register token count of the ViT backbone (None = hub default).
     feature_num_prefix_tokens: Optional[int] = None
+    backbone_chunk_images: Optional[int] = None
     vertex_feature_dim: int = 768
     fps_subsampling_factor: int = 5
     use_fps: bool = True
@@ -80,6 +90,10 @@ class DiffuserActorConfig:
     diffusion_timesteps: int = 100
     relative: bool = False
     predict_head_yaw: bool = False
+    encoder_dropout: float = 0.0
+    diffusion_dropout: float = 0.0
+    predictor_dropout: float = 0.0
+    loss_weights: LossWeights = LossWeights()
 
     def __post_init__(self):
         if "6D" not in self.rotation_parametrization:
@@ -117,7 +131,9 @@ class DiffuserActor(nn.Module):
     """The policy's parameterized compute: ``encode`` and ``denoise``.
 
     Built on ``device`` (default ``cuda``; raises when CUDA is absent and no
-    device is given).
+    device is given) with the flax initialisers, in eval mode; ``train()``
+    turns dropout on. Every method with attention takes ``impl`` (None = the
+    process-wide default of ``ops.attention``).
     """
 
     def __init__(self, config: DiffuserActorConfig, device: DeviceLike = None):
@@ -138,6 +154,8 @@ class DiffuserActor(nn.Module):
             feature_num_prefix_tokens=cfg.feature_num_prefix_tokens,
             use_shared_feature_encoder=cfg.use_shared_feature_encoder,
             vertex_feature_dim=cfg.vertex_feature_dim,
+            dropout=cfg.encoder_dropout,
+            backbone_chunk_images=cfg.backbone_chunk_images,
         )
         self.head = DiffusionHead(
             embedding_dim=cfg.embedding_dim,
@@ -146,7 +164,10 @@ class DiffuserActor(nn.Module):
             nhist=cfg.nhist,
             ngrippers=cfg.ngrippers,
             predict_head_yaw=cfg.predict_head_yaw,
+            diffusion_dropout=cfg.diffusion_dropout,
+            predictor_dropout=cfg.predictor_dropout,
         )
+        init_as_flax_(self)
         self.to(device)
         self.eval()
 
@@ -164,6 +185,7 @@ class DiffuserActor(nn.Module):
         vertices_valid_mask: Optional[torch.Tensor],
         gripper_history: torch.Tensor,
         curr_closedness: torch.Tensor,
+        impl: Optional[str] = None,
     ) -> Dict[str, Any]:
         """Encode images, mesh and gripper history into fixed denoiser inputs.
 
@@ -192,7 +214,7 @@ class DiffuserActor(nn.Module):
 
         adaln_gripper_feats, _, gripper_attn_weights = (
             self.encoder.encode_gripper_history(
-                gripper_history, context_feats, context, curr_closedness
+                gripper_history, context_feats, context, curr_closedness, impl=impl
             )
         )
         if cfg.use_fps:
@@ -214,7 +236,8 @@ class DiffuserActor(nn.Module):
             "gripper_attn_weights": gripper_attn_weights,
         }
 
-    def encode_prepared(self, prepared: Dict[str, Any]) -> Dict[str, Any]:
+    def encode_prepared(self, prepared: Dict[str, Any],
+                        impl: Optional[str] = None) -> Dict[str, Any]:
         """``encode`` on the output of ``prepare_inputs``."""
         return self.encode(
             prepared.get("rgbs"),
@@ -225,10 +248,17 @@ class DiffuserActor(nn.Module):
             prepared.get("vertices_valid_mask"),
             prepared["gripper_history"],
             prepared["curr_closedness"],
+            impl=impl,
         )
 
+    def forward(self, prepared: Dict[str, Any], noisy_trajectory: torch.Tensor,
+                timesteps: torch.Tensor, impl: Optional[str] = None):
+        """Training-shaped pass: ``encode_prepared``, then one ``denoise``."""
+        fixed = self.encode_prepared(prepared, impl=impl)
+        return self.denoise(noisy_trajectory, timesteps, fixed, impl=impl)
+
     def denoise(self, trajectory: torch.Tensor, timestep: torch.Tensor,
-                fixed_inputs: Dict[str, Any]):
+                fixed_inputs: Dict[str, Any], impl: Optional[str] = None):
         """One denoiser pass: (B, L, G, 9) noisy traj -> (B, L, G, 10) eps+open."""
         return self.head(
             trajectory,
@@ -240,6 +270,7 @@ class DiffuserActor(nn.Module):
             fps_feats=fixed_inputs["fps_feats"],
             fps_pos=fixed_inputs["fps_pos"],
             fps_mask=fixed_inputs["fps_mask"],
+            impl=impl,
         )
 
 
@@ -321,6 +352,54 @@ def prepare_inputs(
         )
     out["gt_head_yaw"] = on_device(batch.get("gt_head_yaw"))
     return out
+
+
+def diffusion_train_loss(
+    model: DiffuserActor,
+    prepared: Dict[str, Any],
+    noise: Optional[torch.Tensor] = None,
+    timesteps: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    impl: Optional[str] = None,
+) -> Dict[str, torch.Tensor]:
+    """Training objective: epsilon-prediction loss at a random timestep.
+
+    The ground truth (``prepared["gt_gripper_pred"]``, (B, L, G, 9)) is
+    noised by the position schedule on [..., :3] and the rotation schedule
+    on [..., 3:9] at ``timesteps`` (B,), and the model's prediction is held
+    to the noise by ``compute_loss``. ``noise`` (B, L, G, 9) and
+    ``timesteps`` come from the caller or are drawn from ``generator`` (on
+    the model's device). Returns the loss dict ("total", "pos", "rot",
+    "gripper", optional "head_yaw").
+    """
+    cfg = model.config
+    pos_sched, rot_sched = cfg.schedules()
+    gt = prepared["gt_gripper_pred"]
+    B = gt.shape[0]
+    if (noise is None or timesteps is None) and generator is None:
+        raise ValueError("pass noise and timesteps, or a torch.Generator")
+    if noise is None:
+        noise = torch.randn(gt.shape, generator=generator, device=gt.device, dtype=gt.dtype)
+    if timesteps is None:
+        timesteps = torch.randint(0, cfg.diffusion_timesteps, (B,), generator=generator,
+                                  device=gt.device)
+    noise = torch.as_tensor(noise, dtype=gt.dtype, device=gt.device)
+    timesteps = torch.as_tensor(timesteps, device=gt.device)
+
+    pos = pos_sched.add_noise(gt[..., :3], noise[..., :3], timesteps)
+    rot = rot_sched.add_noise(gt[..., 3:9], noise[..., 3:9], timesteps)
+    traj_pred, head_yaw_pred, _ = model(prepared, torch.cat([pos, rot], dim=-1), timesteps,
+                                        impl=impl)
+    return compute_loss(
+        traj_pred,
+        head_yaw_pred,
+        noise,
+        prepared.get("gt_openness"),
+        prepared.get("gt_head_yaw"),
+        loss_weights=cfg.loss_weights,
+        predict_head_yaw=cfg.predict_head_yaw,
+        rotation_form="6D",
+    )
 
 
 @torch.no_grad()

@@ -11,6 +11,8 @@ trajectory tokens -> [+ sinusoidal traj-time PE]
 The AdaLN signal is sinusoidal(timestep) MLP + flattened gripper-history
 embedding. Empty-context samples fall back to an all-active mask with zeroed
 features so softmax stays finite, branchless as in the JAX package.
+``diffusion_dropout`` goes to the attention stacks, ``predictor_dropout`` to
+the MLPs' hidden layer, as in the flax module.
 """
 from __future__ import annotations
 
@@ -28,13 +30,14 @@ from nvblox_mindmap_torch.ops.positional import rotary_pe_3d, sinusoidal_pos_emb
 
 
 class Mlp(nn.Module):
-    def __init__(self, in_dim: int, hidden: int, out: int):
+    def __init__(self, in_dim: int, hidden: int, out: int, dropout: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(in_dim, hidden)
+        self.dropout = nn.Dropout(dropout)
         self.fc2 = nn.Linear(hidden, out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.relu(self.fc1(x)))
+        return self.fc2(self.dropout(F.relu(self.fc1(x))))
 
 
 class DiffusionHead(nn.Module):
@@ -46,9 +49,12 @@ class DiffusionHead(nn.Module):
         nhist: int = 3,
         ngrippers: int = 1,
         predict_head_yaw: bool = False,
+        diffusion_dropout: float = 0.0,
+        predictor_dropout: float = 0.0,
     ):
         super().__init__()
         E = embedding_dim
+        attn_drop, mlp_drop = diffusion_dropout, predictor_dropout
         self.embedding_dim = E
         self.traj_encoder = nn.Linear(9, E)
         self.time_emb_l1 = nn.Linear(E, E)
@@ -56,24 +62,24 @@ class DiffusionHead(nn.Module):
         self.gripper_hist_l1 = nn.Linear(nhist * ngrippers * E, E)
         self.gripper_hist_l2 = nn.Linear(E, E)
         self.cross_attn = FFWRelativeCrossAttentionModule(
-            E, num_attn_heads, num_layers=2, use_adaln=True
+            E, num_attn_heads, num_layers=2, use_adaln=True, dropout=attn_drop
         )
         self.self_attn = FFWRelativeSelfAttentionModule(
-            E, num_attn_heads, num_layers=4, use_adaln=True
+            E, num_attn_heads, num_layers=4, use_adaln=True, dropout=attn_drop
         )
         self.rotation_proj = nn.Linear(E, E)
         self.rotation_self_attn = FFWRelativeSelfAttentionModule(
-            E, num_attn_heads, num_layers=2, use_adaln=True
+            E, num_attn_heads, num_layers=2, use_adaln=True, dropout=attn_drop
         )
-        self.rotation_predictor = Mlp(E, E, rotation_dim)
+        self.rotation_predictor = Mlp(E, E, rotation_dim, mlp_drop)
         self.position_proj = nn.Linear(E, E)
         self.position_self_attn = FFWRelativeSelfAttentionModule(
-            E, num_attn_heads, num_layers=2, use_adaln=True
+            E, num_attn_heads, num_layers=2, use_adaln=True, dropout=attn_drop
         )
-        self.position_predictor = Mlp(E, E, 3)
-        self.openness_predictor = Mlp(E, E, 1)
+        self.position_predictor = Mlp(E, E, 3, mlp_drop)
+        self.openness_predictor = Mlp(E, E, 1, mlp_drop)
         self.head_yaw_predictor = (
-            Mlp(ngrippers * E, E, 1) if predict_head_yaw else None
+            Mlp(ngrippers * E, E, 1, mlp_drop) if predict_head_yaw else None
         )
 
     def encode_denoising_timestep(
@@ -97,6 +103,7 @@ class DiffusionHead(nn.Module):
         fps_feats: torch.Tensor,
         fps_pos: torch.Tensor,
         fps_mask: torch.Tensor,
+        impl: Optional[str] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
         """Denoise one step.
 
@@ -106,6 +113,7 @@ class DiffusionHead(nn.Module):
             context_feats/context/context_mask: full context tokens.
             adaln_gripper_feats: (B, nhist*G, E) gripper-history embedding.
             fps_feats/fps_pos/fps_mask: subsampled context tokens.
+            impl: attention impl (None = the process-wide default).
 
         Returns:
             (traj_pred (B, L, G, 10): pos+rot6d+openness logit,
@@ -147,6 +155,7 @@ class DiffusionHead(nn.Module):
             query_pos=rel_gripper_pos,
             value_pos=rel_context_pos,
             key_padding_mask=~context_mask,
+            impl=impl,
         )
         features = torch.cat([outputs[-1], fps_feats], dim=1)
         rel_pos = torch.cat([rel_gripper_pos, fps_pos], dim=1)
@@ -157,18 +166,18 @@ class DiffusionHead(nn.Module):
         )
         features = self.self_attn(
             features, diff_ts=time_embs, query_pos=rel_pos,
-            key_padding_mask=combined_mask,
+            key_padding_mask=combined_mask, impl=impl,
         )[-1]
 
         rot_feats = self.rotation_self_attn(
             features, diff_ts=time_embs, query_pos=rel_pos,
-            key_padding_mask=combined_mask,
+            key_padding_mask=combined_mask, impl=impl,
         )[-1][:, :n_traj]
         rotation = self.rotation_predictor(self.rotation_proj(rot_feats))
 
         pos_feats = self.position_self_attn(
             features, diff_ts=time_embs, query_pos=rel_pos,
-            key_padding_mask=combined_mask,
+            key_padding_mask=combined_mask, impl=impl,
         )[-1][:, :n_traj]
         pos_feats = self.position_proj(pos_feats)
         position = self.position_predictor(pos_feats)

@@ -13,6 +13,13 @@ Port of the non-language parts of ``nvblox_mindmap_tpu/models/encoder.py``:
 - ``run_fps``: feature-space farthest point sampling with zeroed invalid
   tokens.
 
+The backbone is frozen, as the JAX package's ``stop_gradient`` freezes it:
+its parameters have ``requires_grad=False`` and its forward records no
+graph; gradients reach everything after it (``image_feature_encoder``, the
+features FPS gathers). ``backbone_chunk_images`` runs it over the
+(B * ncam) images in chunks of that many, a memory lever for large train
+batches. ``dropout`` goes to the gripper-history cross-attention layers.
+
 Which encoders exist follows ``data_type``, so the parameter tree matches
 the flax module's for every data type. The language layers are a later
 slice; ``DiffuserActorConfig`` raises ``NotImplementedError`` naming it.
@@ -51,9 +58,12 @@ class Encoder(nn.Module):
         feature_num_prefix_tokens: Optional[int] = None,
         use_shared_feature_encoder: bool = False,
         vertex_feature_dim: int = 768,
+        dropout: float = 0.0,
+        backbone_chunk_images: Optional[int] = None,
     ):
         super().__init__()
         self.embedding_dim = embedding_dim
+        self.backbone_chunk_images = backbone_chunk_images
         self.nhist = nhist
         self.ngrippers = ngrippers
         self.fps_subsampling_factor = fps_subsampling_factor
@@ -63,6 +73,7 @@ class Encoder(nn.Module):
             self.feature_extractor = make_feature_extractor(
                 feature_type, feature_image_size, num_prefix_tokens=feature_num_prefix_tokens
             )
+            self.feature_extractor.requires_grad_(False)
             self.image_feature_encoder = nn.Linear(get_feature_dim(feature_type), embedding_dim)
         if data_type in ("mesh", "rgbd_and_mesh") and not use_shared_feature_encoder:
             self.reconstruction_encoder = nn.Linear(vertex_feature_dim, embedding_dim)
@@ -74,7 +85,7 @@ class Encoder(nn.Module):
         else:
             self.gripper_history_embed = nn.Parameter(torch.randn(n_queries, embedding_dim))
         self.gripper_context_head = FFWRelativeCrossAttentionModule(
-            embedding_dim, num_attn_heads, num_layers=3, use_adaln=False
+            embedding_dim, num_attn_heads, num_layers=3, use_adaln=False, dropout=dropout
         )
         # Unused on the keypose path, but part of every checkpoint.
         self.goal_gripper_embed = nn.Parameter(torch.randn(1, embedding_dim))
@@ -101,7 +112,15 @@ class Encoder(nn.Module):
             mask (B, ncam*h*w) or None.
         """
         B, ncam, H, W, _ = rgb.shape
-        feats = self.feature_extractor(rgb.reshape(B * ncam, H, W, 3))  # (B*ncam, h, w, C)
+        flat_rgb = rgb.reshape(B * ncam, H, W, 3)
+        chunk = self.backbone_chunk_images
+        if chunk and B * ncam > chunk and (B * ncam) % chunk == 0:
+            # One chunk's backbone activations live at a time. A chunk that
+            # does not divide the images falls back to one call, as in the
+            # JAX package.
+            feats = torch.cat([self.feature_extractor(x) for x in flat_rgb.split(chunk)])
+        else:
+            feats = self.feature_extractor(flat_rgb)  # (B*ncam, h, w, C)
         h, w = feats.shape[1:3]
         feats = self.image_feature_encoder(feats)
         pos = resize_bilinear(positions.reshape(B * ncam, H, W, 3), (h, w))
@@ -126,6 +145,7 @@ class Encoder(nn.Module):
         context_feats: torch.Tensor,
         context: torch.Tensor,
         curr_closedness: torch.Tensor,
+        impl: Optional[str] = None,
     ):
         """Gripper-history queries cross-attend to the scene context.
 
@@ -133,6 +153,7 @@ class Encoder(nn.Module):
             gripper_history: (B, nhist, ngrippers, >=3) poses.
             context_feats: (B, N, E); context: (B, N, 3).
             curr_closedness: (B, nhist, ngrippers, 1).
+            impl: attention impl (None = the process-wide default).
 
         Returns:
             (feats (B, nhist*ngrippers, E), pos code, last-layer weights).
@@ -148,7 +169,7 @@ class Encoder(nn.Module):
         gripper_pos = self.relative_pe(gripper_history[..., :3].reshape(B, n_queries, 3))
         context_pos = self.relative_pe(context)
         outputs, weights = self.gripper_context_head(
-            queries, context_feats, query_pos=gripper_pos, value_pos=context_pos
+            queries, context_feats, query_pos=gripper_pos, value_pos=context_pos, impl=impl
         )
         return outputs[-1], gripper_pos, weights[-1]
 

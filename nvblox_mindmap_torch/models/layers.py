@@ -17,14 +17,24 @@ and ``models/weights.py`` transposes flax's (in, out) Dense kernels into
 ``nn.Linear``. Masks are exclusion masks (True = ignore key).
 ``ParallelAttention`` and ``FFWRelativeSelfCrossAttentionModule`` serve the
 language paths and are not ported yet.
+
+Training: ``dropout`` sits where the flax modules have ``nn.Dropout`` (after
+the attention output and after each feed-forward projection; 0.0 by
+default). Every ``forward`` with attention takes ``impl`` (``None`` reads the
+process-wide default), so a train step can pass ``"eager"`` whatever
+inference installed. ``set_layer_checkpointing`` wraps each (attention,
+feed-forward) layer of the stacks in ``torch.utils.checkpoint``.
+``init_as_flax_`` gives a module the flax initialisers.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from nvblox_mindmap_torch.ops.attention import (
     get_default_attention_impl,
@@ -32,10 +42,21 @@ from nvblox_mindmap_torch.ops.attention import (
 )
 
 LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default
+# The std of a standard normal truncated to [-2, 2]: flax's truncated-normal
+# initialisers divide by it so the result has the requested std.
+_TRUNCATED_NORMAL_STD = 0.87962566103423978
 
 
 def layer_norm(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+
+
+def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
+    """flax's default ``Dense`` / ``Conv`` kernel init: a normal truncated to
+    two standard deviations, scaled to std 1/sqrt(fan_in)."""
+    fan_in = weight[0].numel()  # (out, in, *kernel): in * kernel size
+    std = math.sqrt(1.0 / fan_in) / _TRUNCATED_NORMAL_STD
+    return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
 
 
 class MultiheadAttention(nn.Module):
@@ -62,10 +83,12 @@ class MultiheadAttention(nn.Module):
         rotary_codes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         key_padding_mask: Optional[torch.Tensor] = None,
         need_weights: bool = True,
+        impl: Optional[str] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        # Under the flash default the kernel cannot materialize weights:
-        # drop them, as the JAX module does.
-        if get_default_attention_impl() == "flash":
+        impl = get_default_attention_impl() if impl is None else impl
+        # The flash kernel cannot materialize weights: drop them, as the JAX
+        # module does under its flash default.
+        if impl == "flash":
             need_weights = False
         out, weights = multi_head_attention(
             self.q_proj(query),
@@ -75,6 +98,7 @@ class MultiheadAttention(nn.Module):
             key_padding_mask=key_padding_mask,
             rotary_codes=rotary_codes,
             need_weights=need_weights,
+            impl=impl,
         )
         return self.out_proj(out), weights
 
@@ -95,27 +119,31 @@ class AdaLN(nn.Module):
 
 
 class FeedforwardLayer(nn.Module):
-    def __init__(self, embedding_dim: int, hidden_dim: int, use_adaln: bool = False):
+    def __init__(self, embedding_dim: int, hidden_dim: int, use_adaln: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.adaln = AdaLN(embedding_dim) if use_adaln else None
         self.linear1 = nn.Linear(embedding_dim, hidden_dim)
         self.linear2 = nn.Linear(hidden_dim, embedding_dim)
+        self.dropout = nn.Dropout(dropout)
         self.norm = layer_norm(embedding_dim)
 
     def forward(self, x: torch.Tensor, diff_ts: Optional[torch.Tensor] = None) -> torch.Tensor:
         if diff_ts is not None:
             x = self.adaln(x, diff_ts)
-        h = self.linear2(F.relu(self.linear1(x)))
+        h = self.dropout(self.linear2(self.dropout(F.relu(self.linear1(x)))))
         return self.norm(x + h)
 
 
 class RelativeCrossAttentionLayer(nn.Module):
     """Post-norm residual cross-attention with rotary relative positions."""
 
-    def __init__(self, embedding_dim: int, num_heads: int, use_adaln: bool = False):
+    def __init__(self, embedding_dim: int, num_heads: int, use_adaln: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.adaln = AdaLN(embedding_dim) if use_adaln else None
         self.attention = MultiheadAttention(embedding_dim, num_heads)
+        self.dropout = nn.Dropout(dropout)
         self.norm = layer_norm(embedding_dim)
 
     def forward(
@@ -126,30 +154,56 @@ class RelativeCrossAttentionLayer(nn.Module):
         query_pos: Optional[torch.Tensor] = None,
         value_pos: Optional[torch.Tensor] = None,
         key_padding_mask: Optional[torch.Tensor] = None,
+        impl: Optional[str] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         adaln_query = query if diff_ts is None else self.adaln(query, diff_ts)
         rotary = None if query_pos is None else (query_pos, value_pos)
         attn_out, weights = self.attention(
             adaln_query, value, value, rotary_codes=rotary,
-            key_padding_mask=key_padding_mask,
+            key_padding_mask=key_padding_mask, impl=impl,
         )
-        return self.norm(query + attn_out), weights
+        return self.norm(query + self.dropout(attn_out)), weights
 
 
 class FFWRelativeCrossAttentionModule(nn.Module):
-    """num_layers x (cross-attention, feed-forward); returns per-layer outputs."""
+    """num_layers x (cross-attention, feed-forward); returns per-layer outputs.
+
+    With ``checkpoint_layers`` set (``set_layer_checkpointing``), each layer
+    runs under ``torch.utils.checkpoint`` while gradients are recorded: its
+    activations are recomputed in the backward pass instead of kept.
+    """
 
     def __init__(self, embedding_dim: int, num_attn_heads: int, num_layers: int,
-                 use_adaln: bool = True):
+                 use_adaln: bool = True, dropout: float = 0.0):
         super().__init__()
+        self.checkpoint_layers = False
         self.attn = nn.ModuleList(
-            RelativeCrossAttentionLayer(embedding_dim, num_attn_heads, use_adaln)
+            RelativeCrossAttentionLayer(embedding_dim, num_attn_heads, use_adaln, dropout)
             for _ in range(num_layers)
         )
         self.ffw = nn.ModuleList(
-            FeedforwardLayer(embedding_dim, embedding_dim, use_adaln)
+            FeedforwardLayer(embedding_dim, embedding_dim, use_adaln, dropout)
             for _ in range(num_layers)
         )
+
+    def _layer(self, i, query, value, diff_ts, query_pos, value_pos, key_padding_mask, impl):
+        query, weights = self.attn[i](query, value, diff_ts, query_pos, value_pos,
+                                      key_padding_mask, impl)
+        return self.ffw[i](query, diff_ts), weights
+
+    def _stack(self, query, value, diff_ts, query_pos, value_pos, key_padding_mask, impl):
+        """The layers in turn; ``value`` None attends to the running query."""
+        outputs, all_weights = [], []
+        for i in range(len(self.attn)):
+            args = (i, query, query if value is None else value, diff_ts, query_pos,
+                    value_pos, key_padding_mask, impl)
+            if self.checkpoint_layers and torch.is_grad_enabled():
+                query, weights = checkpoint(self._layer, *args, use_reentrant=False)
+            else:
+                query, weights = self._layer(*args)
+            outputs.append(query)
+            all_weights.append(weights)
+        return outputs, all_weights
 
     def forward(
         self,
@@ -159,15 +213,10 @@ class FFWRelativeCrossAttentionModule(nn.Module):
         query_pos: Optional[torch.Tensor] = None,
         value_pos: Optional[torch.Tensor] = None,
         key_padding_mask: Optional[torch.Tensor] = None,
+        impl: Optional[str] = None,
     ) -> Tuple[List[torch.Tensor], List[Optional[torch.Tensor]]]:
-        outputs, all_weights = [], []
-        for attn, ffw in zip(self.attn, self.ffw):
-            query, weights = attn(query, value, diff_ts, query_pos, value_pos,
-                                  key_padding_mask)
-            query = ffw(query, diff_ts)
-            outputs.append(query)
-            all_weights.append(weights)
-        return outputs, all_weights
+        return self._stack(query, value, diff_ts, query_pos, value_pos, key_padding_mask,
+                           impl)
 
 
 class FFWRelativeSelfAttentionModule(FFWRelativeCrossAttentionModule):
@@ -179,11 +228,41 @@ class FFWRelativeSelfAttentionModule(FFWRelativeCrossAttentionModule):
         diff_ts: Optional[torch.Tensor] = None,
         query_pos: Optional[torch.Tensor] = None,
         key_padding_mask: Optional[torch.Tensor] = None,
+        impl: Optional[str] = None,
     ) -> List[torch.Tensor]:
-        outputs = []
-        for attn, ffw in zip(self.attn, self.ffw):
-            query, _ = attn(query, query, diff_ts, query_pos, query_pos,
-                            key_padding_mask)
-            query = ffw(query, diff_ts)
-            outputs.append(query)
-        return outputs
+        return self._stack(query, None, diff_ts, query_pos, query_pos, key_padding_mask,
+                           impl)[0]
+
+
+def set_layer_checkpointing(model: nn.Module, enabled: bool) -> None:
+    """Run every attention stack of ``model`` layer by layer under
+    ``torch.utils.checkpoint`` (``enabled``) or keep every activation."""
+    for module in model.modules():
+        if isinstance(module, FFWRelativeCrossAttentionModule):
+            module.checkpoint_layers = enabled
+
+
+def init_as_flax_(model: nn.Module) -> nn.Module:
+    """Initialize ``model``'s layers as the JAX package's flax modules do
+    (in place): lecun-normal kernels and zero biases for every ``nn.Linear``
+    and ``nn.Conv2d`` (flax's ``Dense`` / ``Conv`` defaults), then
+    xavier-uniform kernels for the attention projections and feed-forward
+    layers, and zeros for AdaLN's modulation. LayerNorms keep ones and
+    zeros; the modules' own ``nn.Parameter``s carry their flax initialisers
+    from construction (``normal(1.0)`` gripper embeddings, ``normal(0.02)``
+    ViT positions)."""
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, (nn.Linear, nn.Conv2d)):
+                lecun_normal_(module.weight)
+                nn.init.zeros_(module.bias)
+        for module in model.modules():
+            if isinstance(module, MultiheadAttention):
+                for linear in (module.q_proj, module.k_proj, module.v_proj, module.out_proj):
+                    nn.init.xavier_uniform_(linear.weight)
+            elif isinstance(module, FeedforwardLayer):
+                for linear in (module.linear1, module.linear2):
+                    nn.init.xavier_uniform_(linear.weight)
+            elif isinstance(module, AdaLN):
+                nn.init.zeros_(module.modulation.weight)
+    return model

@@ -21,12 +21,14 @@ The input is the nested dict of numpy arrays that
   taken as they are.
 
 Loading is strict: a key left over on either side, or a shape that differs,
-raises.
+raises. ``flax_paths`` runs the naming the other way: each of a model's
+parameters to its path in the flax tree (the optimizer's weight-decay mask
+is a rule on flax names).
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +42,9 @@ AUTO_NAMES = {
     "Dense_1": "fc2",
 }
 _STACKED = re.compile(r"^(attn|ffw|ln1|ln2|mlp1|mlp2|ls1|ls2)_(\d+)$")
+
+
+_FLAX_AUTO_NAMES = {torch_name: flax_name for flax_name, torch_name in AUTO_NAMES.items()}
 
 
 def _rename(name: str) -> str:
@@ -98,3 +103,29 @@ def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
                 f"{tuple(expected[key].shape)}"
             )
     model.load_state_dict(converted, strict=True)
+
+
+def flax_paths(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
+    """The flax tree path of each of ``model``'s parameters, by state_dict
+    name: the inverse of ``flax_to_state_dict``'s names (an ``nn.Linear`` or
+    ``nn.Conv2d`` ``weight`` is a ``kernel``, a LayerNorm's a ``scale``)."""
+    modules = dict(model.named_modules())
+    paths = {}
+    for name, _ in model.named_parameters():
+        parent, _, leaf = name.rpartition(".")
+        module = modules[parent]
+        parts = parent.split(".") if parent else []
+        if isinstance(module, nn.LayerNorm) and leaf == "weight":
+            leaf = "scale"
+        elif isinstance(module, (nn.Linear, nn.Conv2d)) and leaf == "weight":
+            leaf = "kernel"
+        elif isinstance(module, nn.ParameterList):  # ls1.{i} -> leaf ls1_{i}
+            parts, leaf = parts[:-1], f"{parts[-1]}_{leaf}"
+        path = []
+        for part in parts:
+            if part.isdigit() and path and _STACKED.match(f"{path[-1]}_{part}"):
+                path[-1] = f"{path[-1]}_{part}"
+            else:
+                path.append(_FLAX_AUTO_NAMES.get(part, part))
+        paths[name] = tuple(path) + (leaf,)
+    return paths

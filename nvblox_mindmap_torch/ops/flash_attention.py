@@ -26,6 +26,13 @@ be unit-stride. The output has q's memory layout (``torch.empty_like``).
 tensor launches one kernel or raises. There is no fallback between the two.
 ``flash_attention.launches`` counts calls that launched a kernel;
 ``KERNEL_LAUNCHES`` counts the launches of each kernel.
+
+The kernels are forward-only (the JAX package has no flash backward either),
+and an output written through a pointer has no autograd node. So
+``flash_attention`` and ``run_kernel`` raise, on every device, when grad mode
+is on and q, k or v requires grad: a gradient would otherwise stop at the
+kernel without a word. Inference runs them under ``torch.no_grad``
+(``sample_trajectory``); the train step passes ``impl="eager"``.
 """
 from __future__ import annotations
 
@@ -118,6 +125,12 @@ def _check(q, k, v, key_padding_mask):
     tensors = [q, k, v] + ([] if key_padding_mask is None else [key_padding_mask])
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash_attention inputs must share one device")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash attention has no backward: call it under torch.no_grad() "
+            "or use the eager attention impl (impl='eager') where gradients "
+            "must flow"
+        )
 
 
 def run_kernel(

@@ -27,6 +27,10 @@ def farthest_point_sampling(
         (B, K) int64 indices of the selected points.
     """
     B, N, C = points.shape
+    # Indices carry no gradient (``gather_points`` carries it to the picked
+    # features): without detaching, autograd would keep every pick's
+    # (B, N, C) difference for a backward pass that never reads it.
+    points = points.detach()
     if not 1 <= num_samples <= N:
         raise ValueError(f"num_samples must be in [1, {N}], got {num_samples}")
     idx = torch.empty((B, num_samples), dtype=torch.int64, device=points.device)

@@ -8,7 +8,8 @@ call sites:
 - position schedule ``scaled_linear``, rotation ``squaredcos_cap_v2``;
 - ``leading`` and ``trailing`` timestep spacing;
 - DDIM uses the clipped x0 with the raw predicted eps;
-- DDPM uses the ``fixed_small`` variance and adds no noise at t = 0.
+- DDPM uses the ``fixed_small`` variance and adds no noise at t = 0;
+- ``add_noise`` is the forward process the training loss draws from.
 
 Unlike the JAX version, ``step`` takes its noise as a tensor: torch cannot
 reproduce ``jax.random`` streams, so the sampler draws (or is handed) the
@@ -81,6 +82,20 @@ class DiffusionSchedule:
         else:
             raise ValueError(f"unknown timestep spacing: {spacing!r}")
         return ts.copy()
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor,
+                  t: torch.Tensor) -> torch.Tensor:
+        """Forward-process noising: sqrt(abar_t) x0 + sqrt(1 - abar_t) eps.
+
+        ``t`` is a (B,) integer tensor on x0's device and broadcasts over the
+        trailing dims of x0. The square roots are taken in float32 on the
+        device, as the JAX package takes them.
+        """
+        abar = torch.as_tensor(self.alphas_cumprod, device=x0.device)[t.long()]
+        shape = (x0.shape[0],) + (1,) * (x0.dim() - 1)
+        sqrt_abar = torch.sqrt(abar).reshape(shape).to(x0.dtype)
+        sqrt_1m = torch.sqrt(1.0 - abar).reshape(shape).to(x0.dtype)
+        return sqrt_abar * x0 + sqrt_1m * noise
 
     def _alpha_bar(self, t: int) -> np.float32:
         return np.float32(1.0) if t < 0 else self.alphas_cumprod[t]

@@ -1,6 +1,6 @@
 """Torch port on the card: the CUDA kernels against their plain version,
-and the plain-torch paths (ViT, image encoding, the mapper) on the card
-against the same code on the CPU.
+and the plain-torch paths (ViT, image encoding, the mapper, a train step) on
+the card against the same code on the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc, and skips elsewhere. This file
 imports neither JAX nor the JAX package, so it runs on a machine without
@@ -15,7 +15,9 @@ swap-test bound. The bf16 ViT on the card vs the port on the CPU: mean abs
 <= 1e-2 and max abs <= 0.1, the bound that holds the port to the JAX
 package (``tests/test_torch_image_path.py``): the two round bf16 at other
 places. The mapper: fp32 fields and surface vertices 1e-5, fp16 pools and
-surface features 1e-3 (``tests/test_torch_mapping.py``'s bounds).
+surface features 1e-3 (``tests/test_torch_mapping.py``'s bounds). A train
+step: the loss rtol 1e-5, gradients rtol 1e-3 / atol 1e-5 (fp32 without
+TF32 on both, other summation orders through forward and backward).
 """
 import numpy as np
 import pytest
@@ -344,3 +346,77 @@ def test_mapper_on_cuda_matches_cpu(gen, include_dynamic):
         assert vc.shape == v.shape and len(v) > 50
         np.testing.assert_allclose(vc, v, atol=1e-5, rtol=0)
         np.testing.assert_allclose(fc, f, atol=1e-3, rtol=0)
+
+
+# ------------------------------------------------------------------ training
+
+
+def test_flash_refuses_under_grad_on_cuda(gen):
+    """The kernels have no backward: under autograd they raise and launch
+    nothing."""
+    q = torch.randn(2, 8, 3, 15, device="cuda", generator=gen).requires_grad_()
+    k = torch.randn(2, 8, 64, 15, device="cuda", generator=gen)
+    before = dict(fa.KERNEL_LAUNCHES)
+    for call in (lambda: fa.flash_attention(q, k, k), lambda: fa.run_kernel(SPLIT, q, k, k),
+                 lambda: fa.run_kernel(TILE, q, k, k)):
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+    assert fa.KERNEL_LAUNCHES == before
+    with torch.no_grad():
+        out = fa.flash_attention(q, k, k)
+    torch.testing.assert_close(out, fa.flash_attention_reference(q.detach(), k, k),
+                               rtol=0, atol=ATOL)
+
+
+def test_train_step_on_cuda_matches_cpu(gen):
+    """A small train step on the card with the flash impl installed: no
+    kernel launch, the CPU's loss and gradients (fp32 summation orders);
+    then an eval batch launches both kernels."""
+    from nvblox_mindmap_torch.models.converter import (
+        apply_inference_settings,
+        convert_to_flash_attention,
+    )
+    from nvblox_mindmap_torch.models.diffuser_actor import DiffuserActorConfig
+    from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
+    from nvblox_mindmap_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = DiffuserActorConfig(embedding_dim=72, num_attn_heads=8, vertex_feature_dim=3,
+                              diffusion_timesteps=100, fps_subsampling_factor=4)
+    rng = np.random.default_rng(1)
+    quat = rng.normal(size=(2, 4, 1, 4))
+    quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+    poses = np.concatenate([rng.uniform(0, 1, (2, 4, 1, 3)), quat,
+                            rng.integers(0, 2, (2, 4, 1, 1))], -1).astype(np.float32)
+    batch = {"gripper_history": poses[:, :3], "gt_gripper_pred": poses[:, 3:],
+             "vertices": rng.uniform(0, 1, (2, 256, 3)).astype(np.float32),
+             "vertex_features": rng.uniform(0, 1, (2, 256, 3)).astype(np.float32)}
+    bounds = np.asarray([[0, 0, 0], [1, 1, 1]], np.float32)
+    noise = torch.from_numpy(rng.normal(size=(2, 1, 1, 9)).astype(np.float32))
+    timesteps = torch.from_numpy(rng.integers(0, 100, 2))
+    trainers = {d: Trainer(cfg, TrainerConfig(), bounds, device=d) for d in ("cuda", "cpu")}
+    try:
+        apply_inference_settings(convert_to_flash_attention())
+        before = dict(fa.KERNEL_LAUNCHES)
+        losses = {}
+        for device, trainer in trainers.items():
+            trainer.init_state()
+            losses[device] = trainer.compute_loss_and_grads(batch, 0, noise.to(device),
+                                                            timesteps.to(device))
+        torch.cuda.synchronize()
+        assert fa.KERNEL_LAUNCHES == before
+        torch.testing.assert_close(losses["cuda"]["total"].cpu(), losses["cpu"]["total"],
+                                   rtol=1e-5, atol=0)
+        cpu_params = dict(trainers["cpu"].model.named_parameters())
+        for name, p in trainers["cuda"].model.named_parameters():
+            ref = cpu_params[name].grad
+            if ref is None:
+                assert p.grad is None, name
+                continue
+            torch.testing.assert_close(p.grad.cpu(), ref, rtol=1e-3, atol=1e-5, msg=name)
+        trainers["cuda"].optimizer.step()
+        trainers["cuda"].eval_step(batch, generator=torch.Generator("cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        assert fa.KERNEL_LAUNCHES[SPLIT] - before[SPLIT] == 3 + 2 * 10
+        assert fa.KERNEL_LAUNCHES[TILE] - before[TILE] == 8 * 10
+    finally:
+        set_default_attention_impl("eager")

@@ -1,8 +1,9 @@
 """The torch port stands alone: no JAX, no flax, nothing of the JAX package.
 
 - A subprocess that blocks ``jax`` imports the port and runs small mesh and
-  rgbd_and_mesh keypose predictions and two mapping steps plus a goal of
-  the closed-loop policy on the CPU, then checks which modules were loaded.
+  rgbd_and_mesh keypose predictions, a train step, an eval batch and a
+  checkpoint round trip, and two mapping steps plus a goal of the
+  closed-loop policy on the CPU, then checks which modules were loaded.
 - A scan of the port's sources and ``chip_smoke.py`` for such imports.
 - Entry points called without a device on a machine without CUDA raise
   rather than fall back to the CPU.
@@ -49,6 +50,26 @@ kw = apply_inference_settings(dict(convert_to_flash_attention(), **convert_diffu
 traj, _, weights = sample_trajectory(model, prepared, bounds,
                                      generator=torch.Generator().manual_seed(0), **kw)
 assert traj.shape == (1, 1, 1, 8) and bool(torch.isfinite(traj).all()) and weights is None
+
+# Training, with the flash impl still installed: a train step, an eval batch,
+# a checkpoint round trip.
+import os
+import tempfile
+from nvblox_mindmap_torch.training.trainer import Trainer, TrainerConfig
+
+batch["gt_gripper_pred"] = batch["gripper_history"][:, -1:]
+ckpt_dir = tempfile.mkdtemp()
+tcfg = TrainerConfig(checkpoint_dir=ckpt_dir, eval_num_inference_steps=3)
+trainer = Trainer(cfg, tcfg, bounds, device="cpu")
+trainer.init_state()
+assert bool(torch.isfinite(trainer.train_one_step(batch, 0)["total"]))
+loss, metrics = trainer.evaluate_nsteps([batch], 0, 1, "val")
+assert np.isfinite(loss) and np.isfinite(metrics["rot_error_deg"])
+trainer._save_best_and_last(0, loss, None)
+restored = Trainer(cfg, tcfg, bounds, device="cpu")
+assert restored.load_checkpoint(os.path.join(ckpt_dir, "best.ckpt")) == (0, loss)
+assert all(torch.equal(a, b) for a, b in zip(trainer.model.state_dict().values(),
+                                             restored.model.state_dict().values()))
 
 # rgbd_and_mesh through a registry ViT (DINOv2 geometry, 2x2 patch grid,
 # random weights) with uint8 images; the backbone-checkpoint modules import.
@@ -130,6 +151,9 @@ def test_sources_import_nothing_of_jax():
     offenders = []
     sources = _port_sources()
     assert len(sources) > 10
+    for module in ("training/trainer.py", "training/optimizer.py", "training/checkpoint.py",
+                   "models/loss.py", "utils/timers.py", "data/sampler.py"):
+        assert os.path.join(ROOT, "nvblox_mindmap_torch", module) in sources, module
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -156,6 +180,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
     from nvblox_mindmap_torch.mapping.mapper import Mapper
     from nvblox_mindmap_torch.mapping.voxel_grid import create_state
     from nvblox_mindmap_torch.models.pretrained import build_backbone, make_feature_fn
+    from nvblox_mindmap_torch.training.trainer import Trainer, TrainerConfig
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = DiffuserActorConfig(embedding_dim=24, num_attn_heads=4, vertex_feature_dim=8)
@@ -166,6 +191,8 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
                        np.zeros((2, 3), np.float32), cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_backbone("rgb", feature_image_size=(4, 4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, TrainerConfig(), np.zeros((2, 3), np.float32))
     mapping = MappingConfig(voxel_size_m=0.1, aabb_min_m=(0, 0, 0), aabb_max_m=(1, 1, 1),
                             feature_dim=3, max_feature_pages=4)
     bounds = np.asarray([[0, 0, 0], [1, 1, 1]], np.float32)
