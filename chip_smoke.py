@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the torch port's keypose prediction, live mapping and closed-loop
-policy on one NVIDIA GPU.
+"""Drive the torch port's keypose prediction, live mapping, closed-loop
+policy, training and training app on one NVIDIA GPU.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It
 
@@ -13,8 +13,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    transposed views, and with fully masked batch elements and wholly masked
    key chunks; times kernel, plain version, one library call for the same
    function (a yardstick the port never calls) and the least time the card
-   could take (``bound_ms``); and times both kernels at L = 1..8 (phase
-   ``threshold``: the measurement behind the split kernel's limit);
+   could take (``bound_ms``), at head dims 64 and 128 and for bf16 inputs
+   too; and times both kernels at L = 1..8 (phase ``threshold``: the
+   measurement behind the split kernel's limit);
 4. times the RADIO ViT-B/16 backbone's forward (phase ``vit``) at the
    flagship's 2 cameras x 512x512, for batch 1 and 8, beside its bound;
 5. runs keypose prediction at full width (embedding 120, 8 heads, seeded
@@ -49,20 +50,31 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    ``bench.py``'s train width (``rgbd_and_mesh``, B = 32, random weights),
    with the flash impl installed as the process-wide default. After one
    update every trainable parameter the path reads gets a finite, non-zero
-   gradient; 2 warm-up and 12 timed steps launch no flash kernel and leave
+   gradient; 2 warm-up and 8 timed steps launch no flash kernel and leave
    the frozen backbone bit-equal; their p50, samples/s, device busy and
    idle share, peak memory and FLOPs (``FlopCounterMode``); each eval batch (``evaluate_nsteps``, DDIM-10)
    launches 3 + 2*10 split and 8*10 tile calls; ``run_training`` saves a
    checkpoint, a new trainer loads it, and one step from it equals one step
-   of the trainer that went on; 30 steps on one fixed batch, noise and
+   of the trainer that went on; 20 steps on one fixed batch, noise and
    timesteps lower the loss; one step of the mesh path at full width and
    B = 2 gives the card's loss and gradients on the CPU too;
-9. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}`` as
-   the last line.
+9. runs the training app (``apps/run_training.py``, phase ``train_app``) on
+   an on-disk dataset that the port's writer puts in a temporary directory:
+   cube_stacking, ``rgbd_and_mesh`` with the ego camera at 512x512 (the app
+   takes one camera with a mesh), 2048 of 4096 stored 768-d vertex features,
+   B = 32, a seeded random RADIO ViT-B/16 saved as the ``--backbone_weights``
+   .npz. Each of two runs (``--num_workers`` 0 and 4) takes 6 train steps
+   (no flash launch) and one eval batch (3 + 2*10 split, 8*10 tile calls)
+   and writes best.ckpt, last.ckpt and training_args.json; best.ckpt,
+   rebuilt through the frozen args, predicts one keypose through both
+   kernels. It times the loader per worker count and in its parts, the
+   app-fed step and its batch wait, and the card's idle share;
+10. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}``
+   as the last line.
 
 Any failure raises, and the script exits non-zero without the last line.
 It exits non-zero as well when no CUDA device is present or the package is
-not beside it.
+not beside it: a copy of the script on its own refuses to run.
 """
 from __future__ import annotations
 
@@ -102,6 +114,10 @@ HOLE_SHARE = 0.1
 IMAGE_VALID_ATOL = 0.05
 TRAJ_ATOL = 5e-3
 TRAIN_BATCH = 32  # bench.py's train_step_ms_b32_flagship
+# The training app's flagship: one (ego) camera, since the app refuses
+# --add_external_cam with rgbd_and_mesh; 1024 image tokens + 2048 vertices.
+APP_CONTEXT = VERTICES + PATCHES * PATCHES
+APP_SELF = 1 + APP_CONTEXT // FPS_FACTOR
 DENOISE_ATOL = 1e-4  # fp32 eps, kernel vs einsum/softmax summation order
 KERNEL_ATOL = 2e-5
 
@@ -215,13 +231,14 @@ def profile(fn, wall_ms, backbone=None):
     return out
 
 
-def attention_bound(B, H, L, S, D, masked, kernel):
+def attention_bound(B, H, L, S, D, masked, kernel, elem_bytes=4):
     """(bound_ms, bound_by): the larger of the FLOPs 4*B*H*L*S*D at the peak
     of the units the kernel uses (the split kernel: fp32 FMA; the tile
     kernel: TF32 tensor cores, its 3xTF32 counted as three products) and
-    each input read once and the output written once at the HBM rate."""
+    each input read once and the output written once at the HBM rate
+    (``elem_bytes`` per element of q, k, v and the output)."""
     flops = 4.0 * B * H * L * S * D
-    nbytes = 4.0 * (2 * B * H * L * D + 2 * B * H * S * D) + (B * S if masked else 0)
+    nbytes = elem_bytes * (2 * B * H * L * D + 2 * B * H * S * D) + (B * S if masked else 0)
     if kernel == "flash_attention_tile":
         t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
     else:
@@ -271,6 +288,23 @@ def check_kernels():
         ("flagship_denoiser_cross", TRAIN_BATCH, HEADS, 1, CONTEXT["rgbd_and_mesh"], 15, True),
         ("flagship_self", TRAIN_BATCH, HEADS, flagship_self, flagship_self, 15, True),
     ]
+    # The training app's one-camera flagship (3072 context tokens, 1 + 614
+    # in self-attention), at an eval batch and at one prediction.
+    for B in (1, TRAIN_BATCH):
+        shapes += [
+            ("app_encoder_cross", B, HEADS, 3, APP_CONTEXT, 15, False),
+            ("app_denoiser_cross", B, HEADS, 1, APP_CONTEXT, 15, True),
+            ("app_self", B, HEADS, APP_SELF, APP_SELF, 15, True),
+        ]
+    # Head dims 64 and 128 (the widest the kernels take), fp32; and 16-bit
+    # inputs at the ViT's attention shape (1025 tokens, 12 heads of 64).
+    shapes += [
+        ("d64_cross", 8, HEADS, 3, VERTICES, 64, False),
+        ("d64_self", 8, HEADS, 410, 410, 64, True),
+        ("d128_cross", 8, HEADS, 1, VERTICES, 128, True),
+        ("d128_self", 8, HEADS, 410, 410, 128, True),
+        ("vit_self_bf16", 2, 12, 1025, 1025, 64, False),
+    ]
     for B in (1, 8):
         shapes += [
             ("flagship_encoder_cross", B, HEADS, 3, CONTEXT["rgbd_and_mesh"], 15, False),
@@ -289,9 +323,10 @@ def check_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for what, B, H, L, S, D, masked in shapes:
-        q = torch.randn(B, H, L, D, device="cuda", generator=gen) * D**-0.5
-        k = torch.randn(B, H, S, D, device="cuda", generator=gen)
-        v = torch.randn(B, H, S, D, device="cuda", generator=gen)
+        dtype = torch.bfloat16 if what.endswith("_bf16") else torch.float32
+        q = (torch.randn(B, H, L, D, device="cuda", generator=gen) * D**-0.5).to(dtype)
+        k = torch.randn(B, H, S, D, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(B, H, S, D, device="cuda", generator=gen).to(dtype)
         mask = None
         if masked:
             mask = torch.rand(B, S, device="cuda", generator=gen) > 0.2
@@ -299,18 +334,25 @@ def check_kernels():
         out = fa.flash_attention(q, k, v, mask)
         ref = fa.flash_attention_reference(q, k, v, mask)
         torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        if not err <= KERNEL_ATOL:
-            raise AssertionError(f"{what} B={B}: {kernel} vs plain {err} > {KERNEL_ATOL}")
+        if out.dtype != dtype:
+            raise AssertionError(f"{what}: output {out.dtype}, expected {dtype}")
+        err = (out.float() - ref.float()).abs().max().item()
+        # 16-bit outputs: the fp32 results, each rounded once to the dtype.
+        atol = KERNEL_ATOL + torch.finfo(dtype).eps * ref.float().abs().max().item() * (
+            dtype != torch.float32)
+        if not err <= atol:
+            raise AssertionError(f"{what} B={B}: {kernel} vs plain {err} > {atol}")
         sdpa_mask = None if mask is None else mask[:, None, None, :]
         kernel_ms = gpu_time_ms(lambda: fa.flash_attention(q, k, v, mask))
         plain_ms = gpu_time_ms(lambda: fa.flash_attention_reference(q, k, v, mask))
         library_ms = gpu_time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=sdpa_mask, scale=1.0))
-        bound_ms, bound_by = attention_bound(B, H, L, S, D, masked, kernel)
+        bound_ms, bound_by = attention_bound(B, H, L, S, D, masked, kernel,
+                                             elem_bytes=q.element_size())
         row = dict(what=what, kernel=kernel, B=B, H=H, L=L, S=S, D=D, masked=masked,
-                   max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                   dtype=str(dtype).split(".")[-1], max_abs_err=err, atol=atol,
+                   kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
         results[(what, B)] = row
         phase("kernel_check", **row)
 
@@ -805,7 +847,7 @@ def fusion_bytes(cfg, image, pages):
             + 2 * 2 * 4 * slots + 2 * slots * cfg.feature_dim)
 
 
-def measure_fusion(frames=30):
+def measure_fusion(frames=20):
     """``fuse_frame`` at the JAX package's fusion-bench configuration: host
     clock per frame, device busy time from the profiler, the byte bound;
     then each op of the frame on its own."""
@@ -878,7 +920,7 @@ def measure_fusion(frames=30):
     torch.cuda.empty_cache()
 
 
-def run_closed_loop(steps=8, goals=6, parts_reps=5):
+def run_closed_loop(steps=6, goals=4, parts_reps=4):
     """Phase 7: ``NvbloxDiffuserActorPolicy`` at full size on the card.
     Returns each kernel's launches over the timed goals."""
     import numpy as np
@@ -886,7 +928,7 @@ def run_closed_loop(steps=8, goals=6, parts_reps=5):
 
     from nvblox_mindmap_torch.closed_loop.environment import dynamic_mask_from_segmentation
     from nvblox_mindmap_torch.closed_loop.policies import NvbloxDiffuserActorPolicy
-    from nvblox_mindmap_torch.embodiments.codecs import ArmEmbodiment
+    from nvblox_mindmap_torch.embodiments.arm import ArmEmbodiment
     from nvblox_mindmap_torch.geometry.np_rotations import pose7_to_matrix
     from nvblox_mindmap_torch.mapping.mapper import nvblox_integrate
     from nvblox_mindmap_torch.models.converter import (
@@ -1012,8 +1054,8 @@ def run_closed_loop(steps=8, goals=6, parts_reps=5):
 # Training
 # --------------------------------------------------------------------------
 
-TRAIN_TIMED_STEPS = 12
-LEARN_STEPS = 30
+TRAIN_TIMED_STEPS = 8
+LEARN_STEPS = 20
 EVAL_BATCHES = 2
 EVAL_STEPS = 10  # DDIM-10, TrainerConfig's eval sampler
 # Card vs CPU, one train step of the mesh path (fp32 on both, no TF32; the
@@ -1121,7 +1163,8 @@ def check_train_card_vs_cpu():
 
 def run_training_phase(smi):
     """Phase 8: the flagship trained on the card. Returns each kernel's
-    launches over the main path (train steps, then eval batches)."""
+    launches over the main path (train steps, then eval batches), and the
+    train step's p50 (ms) with the batch resident on the card."""
     import numpy as np
     import torch
     from torch.utils.flop_counter import FlopCounterMode
@@ -1205,7 +1248,7 @@ def run_training_phase(smi):
     if not (np.isfinite(mean_loss) and all(np.isfinite(v).all() for v in metrics.values())):
         raise AssertionError(f"eval: loss {mean_loss}, metrics {metrics}")
     eval_times = []
-    for i in range(6):
+    for i in range(4):
         reset_flash_counts()
         eval_times.append(host_ms(
             lambda: trainer.evaluate_nsteps([batches[i % 2]], 103 + i, 1, "val")))
@@ -1271,6 +1314,370 @@ def run_training_phase(smi):
           learning=dict(steps=LEARN_STEPS, first_loss=curve[0], last_loss=curve[-1],
                         curve=curve[::5]),
           backbone_bit_equal=True, card_vs_cpu=card_vs_cpu)
+    return launches, p50
+
+# --------------------------------------------------------------------------
+# The training app on an on-disk dataset
+# --------------------------------------------------------------------------
+
+APP_TASK = "cube_stacking"
+APP_FRAMES = 48
+APP_STORED_VERTICES = 4096  # per frame on disk; VertexSampler draws VERTICES
+APP_TRAIN_ITERS = 6  # then one validation batch
+APP_LOADER_EPOCHS = 2  # of 3 batches: 2 train demos of 48 frames
+APP_VIEWS = 6  # distinct wrist-camera renders, cycled over the frames
+APP_WORKERS = (0, 4)
+
+
+def scripted_pick(n=APP_FRAMES):
+    """(n, 9) arm robot states: descend, grasp (frames 12-17), carry over an
+    arch, lower, release (36-41), lift. The keypose estimator finds both
+    grasp events, the arch's top and the frames 5 around the grasps."""
+    import numpy as np
+
+    i = np.arange(n, dtype=np.float64)
+    x = np.interp(i, [0, 12, 18, 35, n - 1], [0.40, 0.45, 0.45, 0.60, 0.60])
+    y = np.interp(i, [0, 12, 18, 35, n - 1], [-0.15, -0.10, -0.10, 0.15, 0.15])
+    z = np.interp(i, [0, 12, 18, 35, 41, n - 1], [0.30, 0.08, 0.08, 0.12, 0.12, 0.30])
+    arch = (i > 18) & (i < 35)
+    z[arch] += 0.25 * np.sin(np.pi * (i[arch] - 18) / 17)
+    jaw = np.interp(i, [0, 12, 17, 36, 41, n - 1], [0.04, 0.04, 0.01, 0.01, 0.04, 0.04])
+    quat = np.tile([0.0, 1.0, 0.0, 0.0], (n, 1))  # gripper pointing down
+    return np.concatenate([x[:, None], y[:, None], z[:, None], quat,
+                           jaw[:, None], jaw[:, None]], 1).astype(np.float32)
+
+
+def wrist_camera(state):
+    """The ego camera 0.25 m above the end effector, looking down and ahead."""
+    eye = state[:3] + [0.0, 0.0, 0.25]
+    return look_at_pose7(eye, [eye[0] + 0.15, eye[1], 0.0])
+
+
+def write_app_dataset(root, seed=0):
+    """Two train and one val demo of ``APP_FRAMES`` frames in the reference
+    layout, written with the port's ``DemoWriter``: the ego camera's RGB
+    and depth at 512x512 over the analytic scene (inside cube_stacking's
+    workspace), its pose and intrinsics, the robot state, and
+    ``APP_STORED_VERTICES`` surface points of the frame with 768-d fp16
+    features. Returns (bytes written, seconds)."""
+    import numpy as np
+
+    from nvblox_mindmap_torch.data.batching import _backproject_np
+    from nvblox_mindmap_torch.data.writer import DemoWriter
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    states = scripted_pick()
+    views = {}
+    for d in range(3):
+        writer = DemoWriter(os.path.join(root, f"demo_{d:05d}"), png_compress_level=1)
+        for i, state in enumerate(states):
+            view = i * APP_VIEWS // APP_FRAMES
+            if view not in views:
+                pose7 = wrist_camera(states[view * APP_FRAMES // APP_VIEWS])
+                rgb, depth, K, _ = render_camera(pose7, IMAGE)
+                points = _backproject_np(depth[None], K, pose7[None, :3], pose7[None, 3:])[0]
+                views[view] = (pose7, rgb, depth, K, points.reshape(-1, 3)[depth.reshape(-1) > 0])
+            pose7, rgb, depth, K, points = views[view]
+            writer.write_robot_state(i, state)
+            writer.write_camera_frame(i, "wrist", rgb, depth, pose7, K)
+            pick = rng.choice(len(points), APP_STORED_VERTICES, replace=False)
+            writer.write_vertex_features(
+                i, points[pick], rng.standard_normal((APP_STORED_VERTICES, FEATURE_DIM),
+                                                     np.float32))
+        writer.write_outcome(1)
+    size = sum(os.path.getsize(os.path.join(dirpath, f))
+               for dirpath, _, files in os.walk(root) for f in files)
+    return size, time.perf_counter() - t0
+
+
+def save_random_backbone(path):
+    """The seeded random RADIO ViT-B/16 as a converted ``.npz`` (the flax
+    layout of ``weight_conversion.save_variables_npz``); returns the module."""
+    import numpy as np
+    import torch
+
+    from nvblox_mindmap_torch.models.feature_extractors import make_feature_extractor
+    from nvblox_mindmap_torch.models.weight_conversion import save_variables_npz
+    from nvblox_mindmap_torch.models.weights import flax_paths
+
+    torch.manual_seed(11)
+    vit = make_feature_extractor("radio_v25_b", (PATCHES, PATCHES))
+    heads = vit.width // 64
+    params = dict(vit.named_parameters())
+    tree = {}
+    for name, flax_path in flax_paths(vit).items():
+        w = params[name].detach().numpy()
+        leaf, parent = flax_path[-1], flax_path[-2] if len(flax_path) > 1 else ""
+        if leaf == "kernel" and w.ndim == 4:  # Conv (out, in, kh, kw) -> (kh, kw, in, out)
+            w = w.transpose(2, 3, 1, 0)
+        elif leaf == "kernel" and parent in ("query", "key", "value"):  # -> (E, H, D)
+            w = w.T.reshape(w.shape[1], heads, -1)
+        elif leaf == "kernel" and parent == "out":  # -> (H, D, E)
+            w = w.T.reshape(heads, -1, w.shape[0])
+        elif leaf == "kernel":
+            w = w.T
+        elif leaf == "bias" and parent in ("query", "key", "value"):
+            w = w.reshape(heads, -1)
+        node = tree
+        for part in flax_path[:-1]:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(w)
+    save_variables_npz(path, {"params": tree})
+    return vit
+
+
+def loader_parts(loader, samples=8):
+    """ms per batch of ``TRAIN_BATCH`` for each part of the host pipeline,
+    on this thread: PNG decode of the RGB and the depth item, the zstd
+    pickle of vertex features, the vertex draw, then a whole batch of
+    samples, its collation and its unpacking (back-projection included)."""
+    import numpy as np
+
+    from nvblox_mindmap_torch.data import batching, item_io
+    from nvblox_mindmap_torch.data.item_names import NVBLOX_VERTEX_FEATURES_ITEM_NAME
+
+    ds = loader.dataset
+    info = ds.demo_info[ds.demo_paths[0]]
+    rgb, depth = info["wrist_rgb.png"], info["wrist_depth.png"]
+    zst = info[NVBLOX_VERTEX_FEATURES_ITEM_NAME]
+    sampler = ds.transforms[NVBLOX_VERTEX_FEATURES_ITEM_NAME][-1]
+
+    def per_batch(fn, n=samples):
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        return (time.perf_counter() - t0) / n * TRAIN_BATCH * 1e3
+
+    meshes = [item_io.load_item(zst[i]) for i in range(samples)]
+    parts = dict(
+        decode_rgb_ms=per_batch(lambda i: item_io.decode_png(rgb[i])),
+        decode_depth_ms=per_batch(lambda i: item_io.decode_png(depth[i])),
+        decode_zst_ms=per_batch(lambda i: item_io.load_item(zst[i])),
+        vertex_draw_ms=per_batch(lambda i: sampler(dict(meshes[i]))),
+    )
+    t0 = time.perf_counter()
+    batch = [ds[i] for i in range(TRAIN_BATCH)]
+    parts["samples_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    collated = batching.collate_batch(batch)
+    parts["collate_ms"] = (time.perf_counter() - t0) * 1e3
+    cams = batching._structure_depth_items(
+        ds.embodiment.get_camera_item_names_by_encoding_method(False)["depth"])
+    pose = collated[cams[0]["pose"]]
+    t0 = time.perf_counter()
+    batching._backproject_np(collated[cams[0]["depth"]], collated[cams[0]["intrinsics"]],
+                             pose[:, :3], pose[:, 3:])
+    parts["backprojection_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    batching.unpack_batch(ds.embodiment, collated, loader.data_type, False, 0.0)
+    parts["unpack_ms"] = (time.perf_counter() - t0) * 1e3
+    del meshes, batch, collated
+    return {k: float(np.round(v, 3)) for k, v in parts.items()}
+
+
+def host_libraries():
+    """What this host offers for the dataset's items: the system zstd and
+    PNG libraries, a C compiler, and which of the reference's Python
+    readers (never used by the port) are installed."""
+    import ctypes.util
+    import importlib.util
+
+    return dict(
+        libzstd=ctypes.util.find_library("zstd"), libpng=ctypes.util.find_library("png16"),
+        cc=shutil.which("cc") or shutil.which("gcc"),
+        python_modules={name: importlib.util.find_spec(name) is not None
+                        for name in ("zstandard", "imageio", "PIL", "wandb", "matplotlib")})
+
+
+def loader_epochs(loader, epochs=APP_LOADER_EPOCHS):
+    """Host-clock ms per batch of whole epochs of ``loader`` taken with
+    nothing else running (the epoch's wall time over its batches: the
+    pipeline's fill and its rate)."""
+    per_batch = []
+    for _ in range(epochs):
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        per_batch.append((time.perf_counter() - t0) * 1e3 / n)
+    return per_batch
+
+
+def run_train_app(resident_step_ms):
+    """Phase 9: the training app (``apps/run_training.py``) on an on-disk
+    dataset at the app's flagship width. Returns each kernel's launches over
+    the main path (the app runs and the prediction from best.ckpt)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from nvblox_mindmap_torch.apps import run_training as app
+    from nvblox_mindmap_torch.data import item_io
+    from nvblox_mindmap_torch.mapping.constants import get_workspace_bounds
+    from nvblox_mindmap_torch.models.converter import (
+        apply_inference_settings,
+        convert_diffusion_scheduler,
+        convert_to_flash_attention,
+    )
+    from nvblox_mindmap_torch.models.diffuser_actor import prepare_inputs, sample_trajectory
+    from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
+    from nvblox_mindmap_torch.training.trainer import Trainer, TrainerConfig
+    from nvblox_mindmap_torch.utils import config, timers
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="mindmap_train_app_")
+    try:
+        data = os.path.join(root, "dataset")
+        dataset_bytes, write_s = write_app_dataset(data)
+        npz = os.path.join(root, "radio_v25_b.npz")
+        save_random_backbone(npz)
+        per_batch = {"flash_attention_split": 3 + 2 * EVAL_STEPS,
+                     "flash_attention_tile": 8 * EVAL_STEPS}
+        flags = ["--dataset", data, "--task", APP_TASK, "--data_type", "rgbd_and_mesh",
+                 "--feature_type", "radio_v25_b", "--feature_image_size",
+                 f"{PATCHES},{PATCHES}", "--embedding_dim", str(EMBEDDING),
+                 "--batch_size", str(TRAIN_BATCH), "--batch_size_val", str(TRAIN_BATCH),
+                 "--num_vertices_to_sample", str(VERTICES), "--demos_train", "0-1",
+                 "--demos_valset", "2", "--train_iters", str(APP_TRAIN_ITERS),
+                 "--val_freq", str(APP_TRAIN_ITERS), "--num_batches_per_test_eval", "1",
+                 "--skip_train_val", "1", "--backbone_weights", npz,
+                 "--print_progress_freq", "1", "--print_timers_freq", "1000000"]
+        runs, launches, result = {}, dict.fromkeys(per_batch, 0), None
+        for workers in APP_WORKERS:
+            timers.reset_timers()
+            reset_flash_counts()
+            result = app.main(flags + ["--num_workers", str(workers), "--base_log_dir",
+                                       os.path.join(root, f"logs_{workers}")])
+            torch.cuda.synchronize()
+            counts = flash_counts()
+            # APP_TRAIN_ITERS train steps launch nothing, the one eval batch
+            # launches 3 + 2*T split and 8*T tile calls.
+            if counts != per_batch:
+                raise AssertionError(f"train_app (num_workers={workers}): {counts} flash "
+                                     f"launches, expected {per_batch}")
+            for kernel, n in counts.items():
+                launches[kernel] += n
+            ckpt_dir = result["checkpoint_dir"]
+            written = sorted(os.listdir(ckpt_dir))
+            if not {"best.ckpt", "last.ckpt", "training_args.json"} <= set(written):
+                raise AssertionError(f"train_app: {ckpt_dir} holds {written}")
+            if not np.isfinite(result["best_loss"]):
+                raise AssertionError(f"train_app: validation loss {result['best_loss']}")
+            # Step 0 warms up; each later step is its batch's wait plus its step.
+            load = [t * 1e3 for t in timers.timer_samples("step/load_batch")[1:]]
+            train = [t * 1e3 for t in timers.timer_samples("step/train")[1:]]
+            fed = [a + b for a, b in zip(load, train)]
+            runs[workers] = dict(
+                num_workers=workers, steps=APP_TRAIN_ITERS, val_loss=result["best_loss"],
+                # The mean beside the p50: the pool refills at every epoch
+                # start, a stall that a p50 over few steps leaves out.
+                step_p50_ms=statistics.median(fed), step_mean_ms=statistics.mean(fed),
+                step_ms=fed,
+                load_batch_p50_ms=statistics.median(load),
+                train_p50_ms=statistics.median(train),
+                load_batch_share=sum(load) / sum(fed),
+                samples_per_s=TRAIN_BATCH / statistics.median(fed) * 1e3,
+                eval_batch_ms=1e3 * timers.timer_samples("step/eval/inference")[-1],
+                checkpoints=written)
+        trainer = result["trainer"]
+        model_cfg = trainer.model.config
+        if (model_cfg.data_type, model_cfg.vertex_feature_dim) != ("rgbd_and_mesh", FEATURE_DIM):
+            raise AssertionError(f"train_app: model config {model_cfg}")
+
+        # The loader on its own, per num_workers, and its parts on one thread.
+        args = config.parse_args(config.TrainingAppArgs, flags)
+        loaders = {}
+        for workers in APP_WORKERS:
+            loader = app.build_loaders(dataclasses.replace(args, num_workers=workers),
+                                       app.make_embodiment_for_task(APP_TASK))[0]
+            times = loader_epochs(loader)
+            loaders[workers] = dict(num_workers=workers, batches_per_epoch=len(loader),
+                                    epochs=len(times), batch_ms=times,
+                                    batch_p50_ms=statistics.median(times))
+        train_loader, _, val_loader = app.build_loaders(args,
+                                                        app.make_embodiment_for_task(APP_TASK))
+        parts = loader_parts(train_loader)
+
+        # Device busy time over 3 app-fed steps (num_workers = 4) against
+        # their host-clock time: the idle share.
+        trainer.config = dataclasses.replace(trainer.config, train_iters=APP_TRAIN_ITERS + 3,
+                                             save_checkpoint=False)
+        train_loader.num_workers = APP_WORKERS[-1]
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.run_training(train_loader, val_loader, start_iter=APP_TRAIN_ITERS)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA)
+        del trainer, result
+
+        # A fresh process's path: the frozen args rebuild the model from
+        # best.ckpt, and it predicts one keypose (DDIM-10, B = 1).
+        best = os.path.join(ckpt_dir, "best.ckpt")
+        cli = config.parse_args(config.TrainingAppArgs,
+                                ["--checkpoint", best, "--task", APP_TASK, "--dataset", data,
+                                 "--embedding_dim", "24", "--data_type", "mesh"])
+        frozen = config.update_model_args_from_checkpoint(cli)
+        if frozen.embedding_dim != EMBEDDING:
+            raise AssertionError(f"train_app: the overlay gave width {frozen.embedding_dim}")
+        cfg = config.model_config_from_args(
+            frozen, vertex_feature_dim=app.vertex_feature_dim(val_loader.dataset))
+        bounds = get_workspace_bounds(APP_TASK)
+        predictor = Trainer(cfg, TrainerConfig(), bounds, device="cuda")
+        predictor.load_checkpoint(best)
+        batch = next(iter(val_loader))
+        one = {k: None if v is None else v[:1] for k, v in batch.items()}
+        prepared = prepare_inputs(one, bounds, cfg, device="cuda")
+        with torch.no_grad():
+            fixed = predictor.model.encode_prepared(prepared, impl="eager")
+        tokens = (fixed["context_feats"].shape[1], 1 + fixed["fps_feats"].shape[1])
+        if tokens != (APP_CONTEXT, APP_SELF):
+            raise AssertionError(f"train_app: context and self-attention tokens {tokens}")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        init = torch.randn((1, 1, 1, 9), generator=gen, device="cuda")
+        sampler = convert_diffusion_scheduler(EVAL_STEPS)
+        set_default_attention_impl("eager")
+        traj_eager, _, _ = sample_trajectory(predictor.model, prepared, bounds,
+                                             init_noise=init, **sampler)
+        apply_inference_settings(convert_to_flash_attention())
+        reset_flash_counts()
+        traj, _, _ = sample_trajectory(predictor.model, prepared, bounds, init_noise=init,
+                                       **sampler)
+        torch.cuda.synchronize()
+        counts = flash_counts()
+        set_default_attention_impl("eager")
+        if counts != per_batch:
+            raise AssertionError(f"train_app prediction: {counts} flash launches")
+        for kernel, n in counts.items():
+            launches[kernel] += n
+        err = (traj - traj_eager).abs().max().item()
+        if traj.shape != (1, 1, 1, 8) or not bool(torch.isfinite(traj).all()) or not (
+                err <= TRAJ_ATOL):
+            raise AssertionError(f"train_app prediction: {traj.shape}, flash vs eager {err}")
+        del predictor, fixed
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase("train_app", task=APP_TASK, data_type="rgbd_and_mesh", cameras=1, image=IMAGE,
+          batch=TRAIN_BATCH, vertices=VERTICES, stored_vertices=APP_STORED_VERTICES,
+          feature_dim=FEATURE_DIM, context_tokens=APP_CONTEXT, self_attention_tokens=APP_SELF,
+          demos=dict(train=2, val=1, frames=APP_FRAMES), dataset_mb=dataset_bytes / 1e6,
+          dataset_write_s=write_s, decoders=item_io.decoder_route(),
+          host_libraries=host_libraries(),
+          app_runs=list(runs.values()), loader=list(loaders.values()),
+          loader_parts_per_batch=parts, resident_step_p50_ms=resident_step_ms,
+          idle=dict(steps=3, wall_ms=wall_ms, device_busy_ms=busy_ms,
+                    device_idle_share=1 - busy_ms / wall_ms),
+          launches_per_eval_batch=per_batch, prediction=dict(
+              sampler=f"ddim{EVAL_STEPS}", launches=counts, flash_vs_eager_max_abs_err=err,
+              frozen_args=dict(embedding_dim=frozen.embedding_dim,
+                               data_type=config.DataType(frozen.data_type).value)),
+          seconds=time.perf_counter() - t_phase)
     return launches
 
 
@@ -1281,7 +1688,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if not os.path.isdir(os.path.join(ROOT, "nvblox_mindmap_torch")):
-        print("chip_smoke: run it from the repository root", file=sys.stderr)
+        print(f"chip_smoke: nvblox_mindmap_torch/ is not beside {__file__}: run the copy "
+              "at the repository root", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1305,7 +1713,7 @@ def main() -> int:
     measure_threshold()
     measure_vit()
     launches = {}
-    for data_type, reps in (("mesh", (6, 30)), ("rgbd_and_mesh", (8, 40))):
+    for data_type, reps in (("mesh", (4, 20)), ("rgbd_and_mesh", (6, 24))):
         path_launches = run_slice(data_type, reps)
         for kernel, n in path_launches.items():
             launches[kernel] = launches.get(kernel, 0) + n
@@ -1313,7 +1721,10 @@ def main() -> int:
     measure_fusion()
     for kernel, n in run_closed_loop().items():
         launches[kernel] = launches.get(kernel, 0) + n
-    for kernel, n in run_training_phase(smi).items():
+    train_launches, resident_step_ms = run_training_phase(smi)
+    for kernel, n in train_launches.items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    for kernel, n in run_train_app(resident_step_ms).items():
         launches[kernel] = launches.get(kernel, 0) + n
 
     # Each kernel at the flagship shape it serves most; beside it, its time
@@ -1324,14 +1735,19 @@ def main() -> int:
                                   "flagship denoiser cross-attention B=1 H=8 L=1 S=4096 "
                                   "D=15 masked", ("denoiser_cross", 1),
                                   "mesh denoiser cross-attention B=1 H=8 L=1 S=2048 D=15 "
-                                  "masked"),
+                                  "masked", ("app_denoiser_cross", TRAIN_BATCH),
+                                  f"training app eval denoiser cross-attention B={TRAIN_BATCH} "
+                                  f"H=8 L=1 S={APP_CONTEXT} D=15 masked"),
         "flash_attention_tile": (("flagship_self", 1),
                                  "flagship self-attention B=1 H=8 L=S=820 D=15 masked",
                                  ("self", 1),
-                                 "mesh self-attention B=1 H=8 L=S=410 D=15 masked"),
+                                 "mesh self-attention B=1 H=8 L=S=410 D=15 masked",
+                                 ("app_self", TRAIN_BATCH),
+                                 f"training app eval self-attention B={TRAIN_BATCH} H=8 "
+                                 f"L=S={APP_SELF} D=15 masked"),
     }
     entries = []
-    for kernel, (key, shape, mesh_key, mesh_shape) in main_shapes.items():
+    for kernel, (key, shape, mesh_key, mesh_shape, app_key, app_shape) in main_shapes.items():
         row = checks[key]
         entries.append({
             "name": kernel,
@@ -1340,7 +1756,8 @@ def main() -> int:
             "replaces": "nvblox_mindmap_tpu/ops/flash_attention.py:43",
             "launches": launches[kernel],
             "max_abs_err": max(r["max_abs_err"] for r in checks.values()
-                               if r["kernel"] == kernel),
+                               if r["kernel"] == kernel
+                               and r.get("dtype", "float32") == "float32"),
             "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
@@ -1349,6 +1766,8 @@ def main() -> int:
             "shape": shape,
             "mesh_path_ms": checks[mesh_key]["kernel_ms"],
             "mesh_path_shape": mesh_shape,
+            "app_path_ms": checks[app_key]["kernel_ms"],
+            "app_path_shape": app_shape,
         })
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

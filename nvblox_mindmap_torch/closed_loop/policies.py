@@ -30,7 +30,7 @@ from nvblox_mindmap_torch.data.vertex_sampling import (
     sample_to_n_vertices,
 )
 from nvblox_mindmap_torch.device import DeviceLike, resolve_device
-from nvblox_mindmap_torch.embodiments.codecs import EmbodimentBase, EmbodimentType
+from nvblox_mindmap_torch.embodiments.base import EmbodimentBase, EmbodimentType
 from nvblox_mindmap_torch.geometry.np_rotations import pose7_to_matrix
 from nvblox_mindmap_torch.mapping.constants import MapperId, MappingConfig
 from nvblox_mindmap_torch.mapping.mapper import (

@@ -9,7 +9,9 @@
 // (B,H,S,D), an optional (B,S) inclusion mask (nonzero = valid key), a
 // streaming softmax whose running max starts at -1e9, p multiplied by the
 // mask, and a safe divide by l > 0 ? l : 1, so a row with no valid key comes
-// out as exact zeros. Head dims up to 64. q, k, v and o come with their own
+// out as exact zeros. Head dims up to 128 (the K row of a thread's key sits
+// in registers, its V row goes straight to shared memory). q, k, v and o
+// come with their own
 // batch, head and sequence strides; only the last dim is unit-stride.
 //
 // What bounds it on this card. The model's few-query calls are the
@@ -68,6 +70,26 @@ struct Params {
 template <int DP>
 __device__ __forceinline__ void load_row(const float* __restrict__ src, int D,
                                          bool vec, float (&dst)[DP]) {
+  if (vec) {
+#pragma unroll
+    for (int d = 0; d < DP; d += 4) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (d < D) x = *reinterpret_cast<const float4*>(src + d);
+      dst[d] = x.x;
+      dst[d + 1] = x.y;
+      dst[d + 2] = x.z;
+      dst[d + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < DP; ++d) dst[d] = d < D ? src[d] : 0.f;
+  }
+}
+
+// Row d < D of src into shared dst, zeros beyond D.
+template <int DP>
+__device__ __forceinline__ void store_row(const float* __restrict__ src, int D,
+                                          bool vec, float* dst) {
   if (vec) {
 #pragma unroll
     for (int d = 0; d < DP; d += 4) {
@@ -145,17 +167,14 @@ flash_split_kernel(const Params p) {
     const bool in = s < s_end;
     const bool valid = in && (mask_b == nullptr || mask_b[s] != 0);
     float kr[DP];
-    float vr[DP];
+    float* v_row = v_s + tid * (DP + 1);
     if (in) {
       load_row<DP>(k_bh + s * p.k_ss, D, vec, kr);
-      load_row<DP>(v_bh + s * p.v_ss, D, vec, vr);
+      store_row<DP>(v_bh + s * p.v_ss, D, vec, v_row);
     } else {
 #pragma unroll
-      for (int d = 0; d < DP; ++d) kr[d] = vr[d] = 0.f;
+      for (int d = 0; d < DP; ++d) kr[d] = v_row[d] = 0.f;
     }
-    float* v_row = v_s + tid * (DP + 1);
-#pragma unroll
-    for (int d = 0; d < DP; ++d) v_row[d] = vr[d];
     v_row[D] = 1.f;  // p * 1 summed over the keys is l
 
     float sc[kMaxL];
@@ -284,7 +303,7 @@ extern "C" int flash_attention_split_fwd(
     int64_t q_sl, int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
     int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_sl,
     void* stream) {
-  if (B <= 0 || H <= 0 || L <= 0 || L > kMaxL || S < 0 || D <= 0 || D > 64 ||
+  if (B <= 0 || H <= 0 || L <= 0 || L > kMaxL || S < 0 || D <= 0 || D > 128 ||
       (int64_t)B * H > 65535)
     return (int)cudaErrorInvalidValue;
   const bool vec = D % 4 == 0 && aligned16(k) && aligned16(v) &&
@@ -298,8 +317,10 @@ extern "C" int flash_attention_split_fwd(
     err = launch<16>(p, B, st);
   else if (D <= 32)
     err = launch<32>(p, B, st);
-  else
+  else if (D <= 64)
     err = launch<64>(p, B, st);
+  else
+    err = launch<128>(p, B, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

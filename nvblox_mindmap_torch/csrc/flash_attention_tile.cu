@@ -8,7 +8,9 @@
 // (B,H,S,D), an optional (B,S) inclusion mask (nonzero = valid key), a
 // streaming softmax whose running max starts at -1e9, p multiplied by the
 // mask, and a safe divide by l > 0 ? l : 1, so a row with no valid key comes
-// out as exact zeros. Head dims up to 64. q, k, v and o come with their own
+// out as exact zeros. Head dims up to 128 (at 128 one pair of warps: two
+// pairs' K and V stages would not fit in shared memory). q, k, v and o come
+// with their own
 // batch, head and sequence strides; only the last dim is unit-stride.
 //
 // What bounds it on this card. The model's many-query calls are its
@@ -431,8 +433,10 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   const dim3 grid((p.L + kBlockM - 1) / kBlockM, B * p.H);
   // A second pair of warps where the SMs would get fewer than two blocks
   // each and there is a second tile of keys for it.
-  if ((int64_t)grid.x * grid.y < 2 * sms && p.S > kTileN)
-    return launch<DP, 2>(p, grid, stream);
+  if constexpr (DP <= 64) {
+    if ((int64_t)grid.x * grid.y < 2 * sms && p.S > kTileN)
+      return launch<DP, 2>(p, grid, stream);
+  }
   return launch<DP, 1>(p, grid, stream);
 }
 
@@ -450,7 +454,7 @@ extern "C" int flash_attention_tile_fwd(
     int64_t q_sl, int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
     int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_sl,
     void* stream) {
-  if (B <= 0 || H <= 0 || L <= 0 || S < 0 || D <= 0 || D > 64 ||
+  if (B <= 0 || H <= 0 || L <= 0 || S < 0 || D <= 0 || D > 128 ||
       (int64_t)B * H > 65535)
     return (int)cudaErrorInvalidValue;
   const bool vec = D % 4 == 0 && aligned16(k) && aligned16(v) &&
@@ -464,7 +468,9 @@ extern "C" int flash_attention_tile_fwd(
     err = launch<16>(p, B, st);
   else if (D <= 32)
     err = launch<32>(p, B, st);
-  else
+  else if (D <= 64)
     err = launch<64>(p, B, st);
+  else
+    err = launch<128>(p, B, st);
   return (int)err;
 }

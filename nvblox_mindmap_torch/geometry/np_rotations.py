@@ -1,9 +1,52 @@
-"""Host-side (numpy) rotation helpers: the subset of the JAX package's
-``nvblox_mindmap_tpu/geometry/np_rotations.py`` behind ``pose7_to_matrix``
-(wxyz quaternions)."""
+"""Host-side (numpy) rotation helpers (wxyz quaternions): the port's own copy
+of the parts of ``nvblox_mindmap_tpu/geometry/np_rotations.py`` that the
+data pipeline (augmentation, back-projection) and the mapper's poses use.
+The arithmetic is the same, so the transforms give the same bits."""
 from __future__ import annotations
 
 import numpy as np
+
+
+def quat_multiply(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    aw, ax, ay, az = np.moveaxis(a, -1, 0)
+    bw, bx, by, bz = np.moveaxis(b, -1, 0)
+    return np.stack(
+        (
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ),
+        axis=-1,
+    )
+
+
+def quat_invert(q: np.ndarray) -> np.ndarray:
+    return q * np.asarray([1.0, -1.0, -1.0, -1.0], dtype=q.dtype)
+
+
+def quat_standardize(q: np.ndarray) -> np.ndarray:
+    """Flip sign so the real part is non-negative (pytorch3d convention)."""
+    return np.where(q[..., :1] < 0, -q, q)
+
+
+def quat_apply(q: np.ndarray, pts: np.ndarray) -> np.ndarray:
+    zeros = np.zeros(pts.shape[:-1] + (1,), dtype=pts.dtype)
+    pq = np.concatenate([zeros, pts], axis=-1)
+    out = quat_multiply(quat_multiply(q, pq), quat_invert(q))
+    return out[..., 1:]
+
+
+def euler_xyz_to_quat(rpy: np.ndarray) -> np.ndarray:
+    """Intrinsic XYZ euler angles (..., 3) -> wxyz quaternion: q = qx * qy * qz,
+    as ``euler_angles_to_matrix(rpy, "XYZ") = Rx @ Ry @ Rz``."""
+    half = np.asarray(rpy) * 0.5
+    cx, cy, cz = np.cos(half[..., 0]), np.cos(half[..., 1]), np.cos(half[..., 2])
+    sx, sy, sz = np.sin(half[..., 0]), np.sin(half[..., 1]), np.sin(half[..., 2])
+    qx = np.stack([cx, sx, np.zeros_like(cx), np.zeros_like(cx)], axis=-1)
+    qy = np.stack([cy, np.zeros_like(cy), sy, np.zeros_like(cy)], axis=-1)
+    qz = np.stack([cz, np.zeros_like(cz), np.zeros_like(cz), sz], axis=-1)
+    return quat_multiply(quat_multiply(qx, qy), qz)
 
 
 def quat_to_matrix(q: np.ndarray) -> np.ndarray:

@@ -1,11 +1,13 @@
-"""Build and load the package's CUDA kernels (``csrc/*.cu``) with nvcc.
+"""Build and load the package's CUDA kernels (``csrc/*.cu``) with nvcc, and
+its host C helpers (``csrc/*.c``) with the system C compiler.
 
 Each source compiles on its own into a shared library with a plain C
 interface, which ``ctypes`` loads. Libraries land in ``build/`` beside the
 package (listed in ``.gitignore``), named by a hash of their source, so an
 edited kernel never loads a stale build. Nothing here runs at import time:
 the first launch of a kernel builds it, or ``build_all`` builds every kernel
-at once (one nvcc process each, started together).
+at once (one nvcc process each, started together); ``load_host`` builds a
+host helper at its first use.
 """
 from __future__ import annotations
 
@@ -44,8 +46,18 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
+def find_cc() -> str:
+    for cc in (os.environ.get("CC"), "cc", "gcc"):
+        if cc and shutil.which(cc):
+            return shutil.which(cc)
+    raise RuntimeError(
+        "no C compiler (cc or gcc) found: the host helpers are built from "
+        "csrc/*.c at first use"
+    )
+
+
+def library_path(name: str, ext: str = ".cu") -> str:
+    with open(os.path.join(CSRC_DIR, name + ext), "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
@@ -62,13 +74,15 @@ def _start_build(name: str) -> Tuple[subprocess.Popen, str]:
     return proc, tmp
 
 
-def _finish_build(name: str, started: Tuple[subprocess.Popen, str]) -> str:
+def _finish_build(name: str, started: Tuple[subprocess.Popen, str],
+                  ext: str = ".cu") -> str:
     proc, tmp = started
     out, _ = proc.communicate()
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
-    os.replace(tmp, library_path(name))
+        raise RuntimeError(f"{'nvcc' if ext == '.cu' else 'cc'} failed for "
+                           f"csrc/{name}{ext}:\n{out}")
+    os.replace(tmp, library_path(name, ext))
     return out
 
 
@@ -91,4 +105,24 @@ def load(name: str) -> ctypes.CDLL:
             _finish_build(name, _start_build(name))
         lib = ctypes.CDLL(path)
         _LOADED[name] = lib
+    return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The host helper ``csrc/{name}.c``'s library, built first if needed."""
+    key = name + ".c"
+    lib = _LOADED.get(key)
+    if lib is None:
+        path = library_path(name, ".c")
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [find_cc(), "-O2", "-shared", "-fPIC", "-o", tmp,
+                   os.path.join(CSRC_DIR, name + ".c")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            _finish_build(name, (proc, tmp), ".c")
+        lib = ctypes.CDLL(path)
+        _LOADED[key] = lib
     return lib

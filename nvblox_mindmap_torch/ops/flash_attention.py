@@ -6,7 +6,11 @@ The kernels replace the JAX package's Pallas TPU kernel
 from ``flash_attention``): forward-only streaming-softmax attention over
 pre-scaled q (B, H, L, D) and k, v (B, H, S, D) with an optional (B, S)
 inclusion key mask (True = valid key). Rows with no valid key come out as
-exact zeros. Both compute that same function:
+exact zeros. Head dims go up to ``MAX_HEAD_DIM`` = 128; q, k and v may be
+fp32, fp16 or bf16: the function is computed in fp32 and returned in q's
+dtype, as the Pallas kernel's ``out_shape`` is (the wrapper casts 16-bit
+inputs to fp32 for the kernels, and the plain version does the same). Both
+kernels compute that same function:
 
 - ``flash_attention_split`` (``csrc/flash_attention_split.cu``), for
   L <= ``SPLIT_MAX_L`` queries: one launch whose thread block cluster splits
@@ -42,7 +46,8 @@ from typing import Callable, Dict, Optional
 import torch
 
 NEG_INF = -1e9
-MAX_HEAD_DIM = 64
+MAX_HEAD_DIM = 128
+DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 # The split kernel serves up to this many queries (PERF.md has the
 # measurement behind the choice).
 SPLIT_MAX_L = 8
@@ -56,7 +61,8 @@ def flash_attention_reference(
     v: torch.Tensor,
     key_padding_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain torch version of both kernels, with the same exact-zero rule.
+    """Plain torch version of both kernels, with the same exact-zero rule
+    and dtype rule (computed in fp32, returned in q's dtype).
 
     Args:
         q: (B, H, L, D) queries, already scaled by 1/sqrt(D_head).
@@ -66,6 +72,8 @@ def flash_attention_reference(
     Returns:
         (B, H, L, D).
     """
+    dtype = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
     s = torch.einsum("bhld,bhsd->bhls", q, k)
     if key_padding_mask is None:
         valid = torch.ones(s.shape[-1], dtype=q.dtype, device=q.device)
@@ -77,7 +85,7 @@ def flash_attention_reference(
     p = torch.exp(s - m) * valid
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhls,bhsd->bhld", p, v)
-    return out / torch.where(l > 0, l, torch.ones_like(l))
+    return (out / torch.where(l > 0, l, torch.ones_like(l))).to(dtype)
 
 
 def kernel_for(num_queries: int) -> str:
@@ -142,15 +150,18 @@ def run_kernel(
 ) -> torch.Tensor:
     """Launch kernel ``name`` on CUDA tensors and return its output.
 
-    Takes fp32 q, k, v with a unit-stride last dim and any other strides, a
-    contiguous bool mask and head dims up to 64 (the split kernel: at most
-    ``SPLIT_MAX_L`` queries), and raises on anything else.
+    Takes fp32, fp16 or bf16 q, k, v with a unit-stride last dim and any
+    other strides, a contiguous bool mask and head dims up to
+    ``MAX_HEAD_DIM`` (the split kernel: at most ``SPLIT_MAX_L`` queries), and
+    raises on anything else. 16-bit inputs are cast to fp32 for the kernel,
+    whose fp32 output is cast back to q's dtype.
     """
     _check(q, k, v, key_padding_mask)
     if q.device.type != "cuda":
         raise ValueError(f"the flash attention kernels run on cuda, not {q.device}")
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise TypeError("the flash attention kernels take fp32 q, k, v")
+    if any(t.dtype not in DTYPES for t in (q, k, v)):
+        raise TypeError(f"the flash attention kernels take q, k, v in {DTYPES}, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if any(t.stride(-1) != 1 and t.shape[-1] > 1 for t in (q, k, v)):
         raise ValueError(
             "the flash attention kernels take q, k, v whose last dim is "
@@ -172,9 +183,11 @@ def run_kernel(
         if not key_padding_mask.is_contiguous():
             raise ValueError("key_padding_mask must be contiguous")
         mask_ptr = key_padding_mask.data_ptr()
+    dtype = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
     out = torch.empty_like(q)
     if L == 0:
-        return out
+        return out.to(dtype)
     fn = _library()[name]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -187,7 +200,7 @@ def run_kernel(
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     KERNEL_LAUNCHES[name] += 1
-    return out
+    return out.to(dtype)
 
 
 def flash_attention(

@@ -14,13 +14,20 @@ pickle of plain values whose ``params`` field holds the flax parameter tree
 in flax's msgpack encoding. A small msgpack decoder here reads it (neither
 flax nor the ``msgpack`` package is needed) and returns the nested dict of
 numpy arrays that ``flax.serialization.msgpack_restore`` returns, ready for
-``models.weights.load_flax_params``. Its ``opt_state`` field, a pickle of
-optax objects, is not read: a JAX checkpoint gives the port its parameters,
-``iter`` and ``best_loss``, and the optimizer starts afresh. Only unpickle
-checkpoints this project wrote.
+``models.weights.load_flax_params``. ``read_jax_opt_state`` reads its
+``opt_state`` field, a pickle of optax's state objects, without optax: a
+restricted unpickler maps each optax state class onto a plain stand-in of
+the same fields (``ScaleByAdamState``, ``ScaleByScheduleState``,
+``MaskedState``, ``EmptyState``, ``MultiStepsState``, ``MaskedNode``),
+resolves numpy's array reconstruction and refuses every other global.
+``training.optimizer.Optimizer.load_optax_state`` takes the Adam moments,
+the update count and a pending accumulation from it. Only unpickle
+checkpoints this project wrote: the outer pickle is read as it is.
 """
 from __future__ import annotations
 
+import collections
+import io
 import json
 import os
 import pickle
@@ -29,6 +36,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from nvblox_mindmap_torch.data.item_io import ArrayUnpickler
 
 TRAINING_ARGUMENT_FILE_NAME = "training_args.json"
 
@@ -100,6 +109,42 @@ def read_jax_checkpoint(path: str) -> Tuple[Dict[str, Any], int, Optional[float]
     with open(path, "rb") as f:
         payload = pickle.load(f)
     return msgpack_restore(payload["params"]), payload["iter"], payload["best_loss"]
+
+
+# Plain stand-ins for optax's state classes (NamedTuples in optax, pickled
+# as the class and its fields), by class name.
+OPTAX_STATES = {
+    name: collections.namedtuple(name, fields)
+    for name, fields in (
+        ("ScaleByAdamState", ("count", "mu", "nu")),
+        ("ScaleByScheduleState", ("count",)),
+        ("MaskedState", ("inner_state",)),
+        ("EmptyState", ()),
+        ("MaskedNode", ()),
+        ("MultiStepsState", ("mini_step", "gradient_step", "inner_opt_state", "acc_grads",
+                             "skip_state")),
+    )
+}
+
+
+class _OptaxStateUnpickler(ArrayUnpickler):
+    """numpy arrays, builtin values and optax's state classes, as stand-ins."""
+
+    def find_class(self, module: str, name: str):
+        if module.split(".")[0] == "optax":
+            if name in OPTAX_STATES:
+                return OPTAX_STATES[name]
+            raise pickle.UnpicklingError(f"optax state class {module}.{name} is not read")
+        return super().find_class(module, name)
+
+
+def read_jax_opt_state(path: str) -> Optional[Any]:
+    """The optax state of a JAX package ``.ckpt`` as a tree of the
+    ``OPTAX_STATES`` stand-ins and numpy arrays; None when the file holds
+    none (the committed fixtures pickle ``None``)."""
+    with open(path, "rb") as f:
+        payload = pickle.load(f)
+    return _OptaxStateUnpickler(io.BytesIO(payload["opt_state"])).load()
 
 
 # ---------------------------------------------------------------- msgpack

@@ -21,6 +21,10 @@ training recipe:
 - ``accumulate_grad_batches`` as ``optax.MultiSteps``: the running mean of k
   micro-batch gradients, one update per k, the schedule advancing once per
   update.
+- ``load_optax_state``: resume from the optax state of a JAX checkpoint
+  (``training.checkpoint.read_jax_opt_state``): the Adam moments through the
+  weight bridge, the update count into the schedule and the bias
+  correction, and ``MultiSteps``' pending micro-steps.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from nvblox_mindmap_torch.models.weights import flax_paths
+from nvblox_mindmap_torch.models.weights import flax_paths, flax_to_state_dict
 
 
 def _decays(path: Sequence[str]) -> bool:
@@ -161,3 +165,51 @@ class Optimizer:
         self.mini_step = int(state["mini_step"])
         self._acc = (None if state["acc"] is None else
                      [a.to(p.device) for a, p in zip(state["acc"], self.params)])
+
+    def load_optax_state(self, state: Any) -> None:
+        """Take the state of the JAX package's optimizer chain (optax's
+        ``adamw`` with a decay mask, the frozen-backbone ``masked``
+        ``set_to_zero``, and ``MultiSteps`` around both when accumulating),
+        as ``read_jax_opt_state`` gives it."""
+        multi = state if type(state).__name__ == "MultiStepsState" else None
+        if (multi is not None) != (self.accumulate_grad_batches > 1):
+            raise ValueError(f"a {'MultiSteps' if multi is not None else 'plain'} optax "
+                             f"state for accumulate_grad_batches="
+                             f"{self.accumulate_grad_batches}")
+        adam = _find_state(state if multi is None else multi.inner_opt_state,
+                           "ScaleByAdamState")
+        if adam is None:
+            raise ValueError("the optax state holds no ScaleByAdamState")
+        schedule = _find_state(state if multi is None else multi.inner_opt_state,
+                               "ScaleByScheduleState")
+        count = int(adam.count)
+        if schedule is not None and int(schedule.count) != count:
+            raise ValueError(f"optax counts differ: adam {count}, schedule "
+                             f"{int(schedule.count)}")
+        mu, nu = flax_to_state_dict(adam.mu), flax_to_state_dict(adam.nu)
+        for name, p in zip(self.names, self.params):
+            if mu[name].shape != p.shape:
+                raise ValueError(f"{name}: optax moment {tuple(mu[name].shape)} != "
+                                 f"parameter {tuple(p.shape)}")
+            self.adamw.state[p] = {
+                "step": torch.tensor(float(count), dtype=torch.float32),
+                "exp_avg": mu[name].to(p.device, p.dtype),
+                "exp_avg_sq": nu[name].to(p.device, p.dtype),
+            }
+        self.count = count
+        if multi is not None:
+            self.mini_step = int(multi.mini_step)
+            acc = flax_to_state_dict(multi.acc_grads)
+            self._acc = [acc[n].to(p.device, p.dtype) for n, p in zip(self.names, self.params)]
+
+
+def _find_state(tree: Any, name: str) -> Any:
+    """The first optax state of class ``name`` in a chain's nested tuples."""
+    if type(tree).__name__ == name:
+        return tree
+    if isinstance(tree, tuple):
+        for item in tree:
+            found = _find_state(item, name)
+            if found is not None:
+                return found
+    return None

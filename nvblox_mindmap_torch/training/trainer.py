@@ -51,6 +51,7 @@ from nvblox_mindmap_torch.training.checkpoint import (
     is_jax_checkpoint,
     load_checkpoint_file,
     read_jax_checkpoint,
+    read_jax_opt_state,
     save_checkpoint,
     save_training_args,
 )
@@ -426,15 +427,22 @@ class Trainer:
     def load_checkpoint(self, path: str) -> Tuple[int, Optional[float]]:
         """Build the model and optimizer from a checkpoint file; returns
         (iter, best_loss). A port checkpoint restores both. A JAX package
-        checkpoint gives its parameters (through the weight bridge), iter and
-        best_loss; its optax state is not read, so the optimizer starts
-        afresh."""
+        checkpoint gives its parameters (through the weight bridge), iter,
+        best_loss and its optax state: the Adam moments, the schedule's
+        update count and a pending accumulation. A file whose optax state is
+        empty (``None``) starts the optimizer afresh, and says so."""
         if os.path.isdir(path):
             raise NotImplementedError(f"orbax checkpoint directories are read by "
                                       f"{MULTI_GPU_SLICE}")
         if is_jax_checkpoint(path):
             params, step, best_loss = read_jax_checkpoint(path)
             self.init_state(flax_params=params)
+            opt_state = read_jax_opt_state(path)
+            if opt_state is None:
+                logger.info("%s holds no optimizer state: the optimizer starts afresh "
+                            "(update count 0, empty Adam moments)", path)
+            else:
+                self.optimizer.load_optax_state(opt_state)
             return step, best_loss
         self.init_state()
         payload = load_checkpoint_file(path)

@@ -11,6 +11,7 @@ starts and stops, so it measures the work done.
 """
 from __future__ import annotations
 
+import collections
 import time
 from typing import Dict, List
 
@@ -18,25 +19,28 @@ import torch
 
 
 class _TimerRecord:
-    __slots__ = ("count", "total", "last", "max")
+    __slots__ = ("count", "total", "last", "max", "recent")
 
     def __init__(self):
         self.count = 0
         self.total = 0.0
         self.last = 0.0
         self.max = 0.0
+        self.recent = collections.deque(maxlen=RECENT)
 
     def update(self, dt: float):
         self.count += 1
         self.total += dt
         self.last = dt
         self.max = max(self.max, dt)
+        self.recent.append(dt)
 
     @property
     def mean(self) -> float:
         return self.total / self.count if self.count else 0.0
 
 
+RECENT = 1024  # durations kept per timer, for percentiles
 _REGISTRY: Dict[str, _TimerRecord] = {}
 
 
@@ -77,6 +81,12 @@ class Timer:
 
 def timer_names() -> List[str]:
     return sorted(_REGISTRY)
+
+
+def timer_samples(name: str) -> List[float]:
+    """The last ``RECENT`` durations (seconds) of timer ``name``, oldest first."""
+    rec = _REGISTRY.get(name)
+    return [] if rec is None else list(rec.recent)
 
 
 def reset_timers():

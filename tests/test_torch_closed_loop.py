@@ -44,11 +44,9 @@ from nvblox_mindmap_tpu.mapping.constants import get_workspace_bounds
 from nvblox_mindmap_tpu.models.diffuser_actor import DiffuserActor as JaxDiffuserActor
 from nvblox_mindmap_tpu.scripts import task_success_experiment as exp
 from nvblox_mindmap_torch.closed_loop import policies as tpol
-from nvblox_mindmap_torch.embodiments.codecs import (
-    ArmEmbodiment,
-    HumanoidEmbodiment,
-    make_embodiment_for_task,
-)
+from nvblox_mindmap_torch.embodiments.arm import ArmEmbodiment
+from nvblox_mindmap_torch.embodiments.humanoid import HumanoidEmbodiment
+from nvblox_mindmap_torch.embodiments.registry import make_embodiment_for_task
 from nvblox_mindmap_torch.mapping.constants import MappingConfig, MapperId
 from nvblox_mindmap_torch.mapping.voxel_grid import state_from_numpy, state_to_numpy
 from nvblox_mindmap_torch.models import diffuser_actor as tda

@@ -83,6 +83,14 @@ def _inputs(gen, B, H, L, S, D, masked):
         # Grids of 2+ blocks per SM: the tile kernel's one-pair blocks.
         (8, 12, 100, 300, 64, True),
         (8, 12, 70, 200, 32, True),
+        # Head dims up to 128, as the Pallas wrapper takes them.
+        (1, 12, 65, 197, 128, True),
+        (1, 12, 8, 1500, 128, True),
+        (2, 3, 100, 130, 100, True),
+        # The training app's one-camera flagship: 3072 context tokens, 1 + 614.
+        (32, 8, 3, 3072, 15, False),
+        (32, 8, 1, 3072, 15, True),
+        (32, 8, 615, 615, 15, True),
     ],
 )
 def test_kernel_matches_plain_version(gen, B, H, L, S, D, masked):
@@ -101,7 +109,7 @@ def test_kernel_matches_plain_version(gen, B, H, L, S, D, masked):
 
 
 @pytest.mark.parametrize("name", [SPLIT, TILE])
-@pytest.mark.parametrize("D", [9, 15, 32, 64])
+@pytest.mark.parametrize("D", [9, 15, 32, 64, 128])
 @pytest.mark.parametrize("L,S", [(1, 333), (8, 2048), (3, 64)])
 def test_each_kernel_at_every_head_dim(gen, name, D, L, S):
     q, k, v, mask = _inputs(gen, 2, 3, L, S, D, masked=True)
@@ -109,6 +117,23 @@ def test_each_kernel_at_every_head_dim(gen, name, D, L, S):
     ref = fa.flash_attention_reference(q, k, v, mask)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=0, atol=ATOL)
+    assert bool((out[0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("L,S,D", [(3, 2048, 64), (410, 410, 64), (1, 600, 128),
+                                   (100, 300, 128)])
+def test_16_bit_inputs(gen, dtype, L, S, D):
+    """16-bit q, k, v: computed in fp32, returned in q's dtype; within one
+    rounding of the plain version's (also fp32) result."""
+    q, k, v, mask = _inputs(gen, 2, 4, L, S, D, masked=True)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    out = fa.flash_attention(q, k, v, mask)
+    ref = fa.flash_attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), rtol=torch.finfo(dtype).eps,
+                               atol=ATOL)
     assert bool((out[0] == 0).all())
 
 
@@ -164,7 +189,7 @@ def test_wrapper_raises_instead_of_falling_back(gen):
     with pytest.raises(TypeError):
         fa.flash_attention(z.double(), z.double(), z.double())
     with pytest.raises(ValueError, match="head dims"):
-        w = torch.zeros(1, 1, 2, 65, device="cuda")
+        w = torch.zeros(1, 1, 2, 129, device="cuda")
         fa.flash_attention(w, w, w)
     with pytest.raises(ValueError, match="unit-stride"):
         t = torch.zeros(1, 2, 3, 16, device="cuda")[..., ::2]

@@ -53,6 +53,10 @@ def _both(q, k, v, mask, block_q=32, block_k=64):
         (1, 8, 33, 33, 9, True),
         (1, 8, 6, 200, 15, False),
         (2, 8, 41, 41, 15, True),
+        # The widest head dims the kernels take (the Pallas wrapper pads D
+        # to a multiple of 128).
+        (1, 2, 20, 70, 64, True),
+        (1, 2, 3, 70, 128, True),
     ],
 )
 def test_plain_version_matches_jax_kernel(B, H, L, S, D, masked):
@@ -61,6 +65,30 @@ def test_plain_version_matches_jax_kernel(B, H, L, S, D, masked):
     mask = (rng.uniform(size=(B, S)) > 0.3) if masked else None
     out, ref = _both(q, k, v, mask)
     np.testing.assert_allclose(out, ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_16_bit_inputs_compute_in_fp32_and_keep_their_dtype(dtype):
+    """16-bit q, k, v: the output is q's dtype, and equals the fp32 function
+    of the same (16-bit) values, rounded once. The Pallas kernel rounds P to
+    v's dtype before P.V as well, so it is held at that dtype's precision:
+    rtol of two ulps at the output's magnitude."""
+    rng = np.random.default_rng(9)
+    q, k, v = _qkv(rng, 2, 3, 20, 50, 64)
+    mask = rng.uniform(size=(2, 50)) > 0.3
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    t16 = [torch.from_numpy(x).to(tdt) for x in (q, k, v)]
+    out = fa.flash_attention(*t16, torch.from_numpy(mask))
+    assert out.dtype == tdt
+    exact = fa.flash_attention(*(t.float() for t in t16), torch.from_numpy(mask))
+    torch.testing.assert_close(out, exact.to(tdt), rtol=0, atol=0)
+    ref = jax_flash(*(jnp.asarray(x).astype(jdt) for x in (q, k, v)),
+                    key_padding_mask=jnp.asarray(mask), block_q=32, block_k=64,
+                    interpret=True)
+    assert ref.dtype == jdt
+    eps = float(torch.finfo(tdt).eps)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                               rtol=2 * eps, atol=2 * eps * exact.abs().max().item())
 
 
 def test_fully_masked_rows_are_exact_zeros():

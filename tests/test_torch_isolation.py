@@ -4,6 +4,11 @@
   rgbd_and_mesh keypose predictions, a train step, an eval batch and a
   checkpoint round trip, and two mapping steps plus a goal of the
   closed-loop policy on the CPU, then checks which modules were loaded.
+- A second subprocess, with ``jax``, ``flax``, ``optax``, ``zstandard``,
+  ``imageio``, ``PIL``, ``wandb`` and ``matplotlib`` blocked, writes demos in
+  the reference layout with the port's writer and trains on them through
+  the port's training app (``--device cpu``), then resumes from its
+  ``last.ckpt``.
 - A scan of the port's sources and ``chip_smoke.py`` for such imports.
 - Entry points called without a device on a machine without CUDA raise
   rather than fall back to the CPU.
@@ -90,7 +95,7 @@ assert traj.shape == (1, 1, 1, 8) and bool(torch.isfinite(traj).all())
 # then a goal from the mesh model above.
 from nvblox_mindmap_torch.closed_loop.environment import CameraFrame, EnvironmentBase
 from nvblox_mindmap_torch.closed_loop.policies import NvbloxDiffuserActorPolicy
-from nvblox_mindmap_torch.embodiments.codecs import ArmEmbodiment
+from nvblox_mindmap_torch.embodiments.arm import ArmEmbodiment
 from nvblox_mindmap_torch.mapping.constants import MappingConfig
 
 
@@ -140,6 +145,68 @@ def test_port_runs_with_jax_blocked():
     assert "LOADED []" in proc.stdout, proc.stdout
 
 
+APP_PATH = r"""
+import sys
+for name in ("jax", "flax", "optax", "zstandard", "imageio", "PIL", "wandb", "matplotlib"):
+    sys.modules[name] = None  # any import of it now raises ImportError
+import os
+import tempfile
+import numpy as np
+from nvblox_mindmap_torch.apps import run_training as app
+from nvblox_mindmap_torch.data.writer import DemoWriter
+
+root = tempfile.mkdtemp()
+rng = np.random.default_rng(0)
+n = 90
+t = np.linspace(0, 1, n)
+pos = np.stack([0.3 + 0.3 * t, 0.1 * np.sin(2 * np.pi * t), 0.2 + 0.3 * np.sin(np.pi * t)], 1)
+jaws = np.full((n, 2), 0.04)
+jaws[40:46] = 0.04 - (np.arange(40, 46)[:, None] - 39) * 0.005
+jaws[46:80] = 0.01
+jaws[80:86] = 0.01 + (np.arange(80, 86)[:, None] - 79) * 0.005
+K = np.asarray([[20.0, 0, 8], [0, 20.0, 8], [0, 0, 1]], np.float32)
+for d in range(2):
+    writer = DemoWriter(os.path.join(root, f"demo_0000{d}"))
+    for i in range(n):
+        writer.write_robot_state(i, np.concatenate([pos[i], [1.0, 0, 0, 0], jaws[i]]))
+        writer.write_camera_frame(i, "wrist", rng.integers(0, 256, (16, 16, 3), dtype=np.uint8),
+                                  0.8 + 0.05 * rng.uniform(size=(16, 16)),
+                                  np.asarray([0.3, 0, 0.9, 0, 1, 0, 0]), K)
+        writer.write_vertex_features(i, rng.uniform(-0.2, 0.9, (40, 3)),
+                                     rng.uniform(0, 1, (40, 3)))
+    writer.write_outcome(1)
+argv = ["--task", "cube_stacking", "--data_type", "rgbd_and_mesh", "--feature_type", "rgb",
+        "--feature_image_size", "2,2", "--embedding_dim", "24", "--diffusion_timesteps", "5",
+        "--fps_subsampling_factor", "4", "--num_vertices_to_sample", "16", "--device", "cpu",
+        "--dataset", root, "--demos_train", "0", "--demos_valset", "1", "--batch_size", "4",
+        "--batch_size_val", "4", "--train_iters", "2", "--val_freq", "2",
+        "--num_batches_per_test_eval", "1", "--skip_train_val", "1", "--num_workers", "2",
+        "--base_log_dir", os.path.join(root, "logs")]
+result = app.main(argv)
+names = sorted(os.listdir(result["checkpoint_dir"]))
+assert {"best.ckpt", "last.ckpt", "training_args.json"} <= set(names), names
+assert np.isfinite(result["best_loss"])
+last = os.path.join(result["checkpoint_dir"], "last.ckpt")
+resumed = app.main(argv[:-1] + [os.path.join(root, "logs2"), "--checkpoint", last,
+                                "--train_iters", "3"])
+# As the JAX app does, the run resumes at the saved iteration (1): steps 1-2.
+assert resumed["start_iter"] == 1 and resumed["trainer"].optimizer.count == 2 + 2
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in {FORBIDDEN})
+print("LOADED", loaded)
+"""
+
+
+def test_training_app_runs_without_the_reference_readers():
+    blocked = FORBIDDEN + ("zstandard", "imageio", "PIL", "wandb", "matplotlib")
+    code = APP_PATH.replace("{FORBIDDEN}", repr(set(blocked)))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
 def _port_sources():
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "nvblox_mindmap_torch")):
@@ -152,7 +219,12 @@ def test_sources_import_nothing_of_jax():
     sources = _port_sources()
     assert len(sources) > 10
     for module in ("training/trainer.py", "training/optimizer.py", "training/checkpoint.py",
-                   "models/loss.py", "utils/timers.py", "data/sampler.py"):
+                   "models/loss.py", "utils/timers.py", "data/sampler.py", "data/item_io.py",
+                   "data/item_names.py", "data/data_types.py", "data/keyposes.py",
+                   "data/transforms.py", "data/dataset.py", "data/batching.py",
+                   "data/loader.py", "data/writer.py", "embodiments/base.py",
+                   "embodiments/arm.py", "embodiments/humanoid.py", "embodiments/registry.py",
+                   "utils/config.py", "utils/logging_utils.py", "apps/run_training.py"):
         assert os.path.join(ROOT, "nvblox_mindmap_torch", module) in sources, module
     for path in sources:
         with open(path) as f:
@@ -165,6 +237,9 @@ def test_sources_import_nothing_of_jax():
             else:
                 continue
             offenders += [(path, n) for n in names if n.split(".")[0] in FORBIDDEN]
+            # The reference readers: the port reads its items without them.
+            offenders += [(path, n) for n in names
+                          if n.split(".")[0] in ("zstandard", "imageio", "PIL")]
     assert offenders == []
 
 
@@ -175,7 +250,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
         prepare_inputs,
     )
     from nvblox_mindmap_torch.closed_loop.policies import NvbloxDiffuserActorPolicy
-    from nvblox_mindmap_torch.embodiments.codecs import ArmEmbodiment
+    from nvblox_mindmap_torch.embodiments.arm import ArmEmbodiment
     from nvblox_mindmap_torch.mapping.constants import MapperId, MappingConfig
     from nvblox_mindmap_torch.mapping.mapper import Mapper
     from nvblox_mindmap_torch.mapping.voxel_grid import create_state

@@ -251,12 +251,16 @@ def jax_train_step(jcfg, params, batch, seed):
         return losses["total"], losses
 
     (_, losses), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    return (losses, jax.tree_util.tree_map(np.asarray, grads)) + jax_step_noise(jcfg, jprep, key)
+
+
+def jax_step_noise(jcfg, jprep, key):
+    """The noise and timesteps ``diffusion_train_loss`` draws from ``key``."""
     noise_key, t_key, _ = jax.random.split(key, 3)
     gt = jprep["gt_gripper_pred"]
     noise = jax.random.normal(noise_key, gt.shape, dtype=gt.dtype)
     timesteps = jax.random.randint(t_key, (gt.shape[0],), 0, jcfg.diffusion_timesteps)
-    return (losses, jax.tree_util.tree_map(np.asarray, grads),
-            torch.from_numpy(np.array(noise)), torch.from_numpy(np.array(timesteps)))
+    return torch.from_numpy(np.array(noise)), torch.from_numpy(np.array(timesteps))
 
 
 def image_train_case(rng):
@@ -534,15 +538,66 @@ def test_jax_checkpoint_reader_matches_flax(path):
         assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
 
 
-def test_trainer_loads_a_jax_checkpoint():
+def test_trainer_loads_a_jax_checkpoint(caplog):
+    """The committed fixtures pickle no optax state (``None``): the
+    optimizer starts afresh, and the trainer says so."""
     path = os.path.join(DATA, "task_success/cube_stacking/last.ckpt")
     trainer = Trainer(fixture_configs(False)[1], TrainerConfig(), BOUNDS, device="cpu")
-    step, best_loss = trainer.load_checkpoint(path)
+    with caplog.at_level("INFO", logger="nvblox_mindmap_torch.trainer"):
+        step, best_loss = trainer.load_checkpoint(path)
     assert (step, round(best_loss, 4)) == (35999, 0.4075)
     ref = flax_to_state_dict(load_params("task_success/cube_stacking/last.ckpt"))
     for name, value in trainer.model.state_dict().items():
         assert torch.equal(value, ref[name]), name
-    assert trainer.optimizer.count == 0  # optax state is not read
+    assert tckpt.read_jax_opt_state(path) is None
+    assert trainer.optimizer.count == 0 and not trainer.optimizer.adamw.state
+    assert "holds no optimizer state" in caplog.text
+
+
+@pytest.mark.parametrize("accumulate", [1, 2])
+def test_resume_from_a_jax_checkpoint_matches_jax(tmp_path, accumulate):
+    """The JAX trainer takes 3 updates (with 2-step accumulation: 3 updates
+    and one pending micro-step) and saves; the port resumes from that file,
+    and its next update, on the same batch, noise and timesteps, matches the
+    JAX trainer's at the same learning rate. Fresh optimizer state would be
+    off by ~1e-3 here (lr 1e-3; the schedule at update 3 of a run of 8 is at
+    0.75 of it). Tolerance: 1e-6, except the attention k-projection biases,
+    whose gradient is zero up to rounding (softmax is shift-invariant), so
+    Adam steps them by rounding noise: held to one step, lr."""
+    jcfg, tcfg = configs(8, **SMALL)
+    rng = np.random.default_rng(12)
+    batches = [mesh_batch(rng) for _ in range(4)]
+    fields = dict(batch_size=2, train_iters=8, initial_learning_rate=1e-3,
+                  accumulate_grad_batches=accumulate)
+    jt = jtrainer.Trainer(jcfg, jtrainer.TrainerConfig(**fields), BOUNDS)
+    params, opt_state = jt.init_state(batches[0])
+    n = 3 * accumulate + (accumulate - 1)  # micro-steps before the checkpoint
+    for step in range(n):
+        params, opt_state, _ = jt.train_one_step(params, opt_state, batches[step % 4], step)
+    path = str(tmp_path / "last.ckpt")
+    from nvblox_mindmap_tpu.training.checkpoint import save_checkpoint_file
+
+    save_checkpoint_file(path, params, opt_state, n - 1, 0.5)
+    batch = batches[n % 4]
+    # The JAX trainer's step n draws from fold_in(PRNGKey(seed), n).
+    noise, timesteps = jax_step_noise(
+        jcfg, jda.prepare_inputs({k: jnp.asarray(v) for k, v in batch.items()},
+                                 jnp.asarray(BOUNDS), jcfg),
+        jax.random.fold_in(jax.random.PRNGKey(0), n))
+    params, _, _ = jt.train_one_step(params, opt_state, batch, n)
+    ref = flax_to_state_dict(jax.tree_util.tree_map(np.asarray, params))
+
+    trainer = Trainer(tcfg, TrainerConfig(**fields), BOUNDS, device="cpu")
+    assert trainer.load_checkpoint(path) == (n - 1, 0.5)
+    optimizer = trainer.optimizer
+    assert (optimizer.count, optimizer.mini_step) == (3, accumulate - 1)
+    lr = float(jopt.linear_lr_schedule(1e-3, 0.5, 8)(3))
+    assert optimizer.schedule(optimizer.count) == lr
+    trainer.train_one_step(batch, n, noise, timesteps)
+    assert optimizer.count == 4
+    for name, value in trainer.model.state_dict().items():
+        atol = lr if "k_proj.bias" in name else 1e-6
+        torch.testing.assert_close(value, ref[name], atol=atol, rtol=0, msg=name)
 
 
 def test_flash_refuses_under_grad(monkeypatch):
