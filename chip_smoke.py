@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the torch port's keypose prediction, live mapping, closed-loop
-policy, training and training app on one NVIDIA GPU.
+policy, training, and its training, datagen and closed-loop apps on one
+NVIDIA GPU.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It
 
@@ -13,8 +14,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    transposed views, and with fully masked batch elements and wholly masked
    key chunks; times kernel, plain version, one library call for the same
    function (a yardstick the port never calls) and the least time the card
-   could take (``bound_ms``), at head dims 64 and 128 and for bf16 inputs
-   too; and times both kernels at L = 1..8 (phase ``threshold``: the
+   could take (``bound_ms``), at head dims 64, 128, 144, 192 and 256 and
+   for bf16 inputs too; and times both kernels at L = 1..8 (phase ``threshold``: the
    measurement behind the split kernel's limit);
 4. times the RADIO ViT-B/16 backbone's forward (phase ``vit``) at the
    flagship's 2 cameras x 512x512, for batch 1 and 8, beside its bound;
@@ -69,7 +70,26 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    rebuilt through the frozen args, predicts one keypose through both
    kernels. It times the loader per worker count and in its parts, the
    app-fed step and its batch wait, and the card's idle share;
-10. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}``
+10. records one cube_stacking demo with the port's scripted expert in the
+   port's scene world at 512x512 (the table camera as 'wrist', with
+   segmentation and a scene.json) and runs the datagen app
+   (``apps/run_datagen.py``, phase ``datagen_app``) on it: the task's
+   mapping config scaled for 512, 768-d features from the seeded random
+   RADIO ViT-B/16 .npz, 12 frames, the serialized map. Every frame's item
+   must read back with 768-d fp16 features and the map file must reload
+   equal to the live map, bit for bit. It prints the per-part times per
+   frame and the card's idle share;
+11. runs the closed-loop app (``apps/run_closed_loop_policy.py``, phase
+   ``closed_loop_app``) on that demo in the scene world with the training
+   app's best.ckpt: the app's flagship (``rgbd_and_mesh``, the ego camera at
+   512, 2048 sampled 768-d vertices, RADIO mapping features: 3072 context
+   tokens, 615 in self-attention), DDIM-10, 4 steps to a goal, 24 steps.
+   Every goal must launch 3 + 2*10 split and 8*10 tile calls, a goal through
+   the kernels must match eager attention and the eval file must be written;
+   then the ground-truth goals on the same demo must stack the cubes
+   (success 1.0). It prints sim-step and goal times, the step's parts (the
+   scene render apart) and the idle share;
+12. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}``
    as the last line.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -84,6 +104,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -120,6 +141,7 @@ APP_CONTEXT = VERTICES + PATCHES * PATCHES
 APP_SELF = 1 + APP_CONTEXT // FPS_FACTOR
 DENOISE_ATOL = 1e-4  # fp32 eps, kernel vs einsum/softmax summation order
 KERNEL_ATOL = 2e-5
+WIDE_HEAD_DIMS = (144, 192, 256)
 
 
 def phase(name, **fields):
@@ -296,8 +318,8 @@ def check_kernels():
             ("app_denoiser_cross", B, HEADS, 1, APP_CONTEXT, 15, True),
             ("app_self", B, HEADS, APP_SELF, APP_SELF, 15, True),
         ]
-    # Head dims 64 and 128 (the widest the kernels take), fp32; and 16-bit
-    # inputs at the ViT's attention shape (1025 tokens, 12 heads of 64).
+    # Head dims 64 and 128, fp32; and 16-bit inputs at the ViT's attention
+    # shape (1025 tokens, 12 heads of 64).
     shapes += [
         ("d64_cross", 8, HEADS, 3, VERTICES, 64, False),
         ("d64_self", 8, HEADS, 410, 410, 64, True),
@@ -305,6 +327,15 @@ def check_kernels():
         ("d128_self", 8, HEADS, 410, 410, 128, True),
         ("vit_self_bf16", 2, 12, 1025, 1025, 64, False),
     ]
+    # Head dims above 128 (chunks of 128 over blockIdx.z), both kernels,
+    # masked and unmasked.
+    for D in WIDE_HEAD_DIMS:
+        shapes += [
+            (f"d{D}_cross", 8, HEADS, 3, VERTICES, D, False),
+            (f"d{D}_cross_masked", 8, HEADS, 1, VERTICES, D, True),
+            (f"d{D}_self", 8, HEADS, 410, 410, D, False),
+            (f"d{D}_self_masked", 8, HEADS, 410, 410, D, True),
+        ]
     for B in (1, 8):
         shapes += [
             ("flagship_encoder_cross", B, HEADS, 3, CONTEXT["rgbd_and_mesh"], 15, False),
@@ -1502,10 +1533,12 @@ def loader_epochs(loader, epochs=APP_LOADER_EPOCHS):
     return per_batch
 
 
-def run_train_app(resident_step_ms):
+def run_train_app(resident_step_ms, keep_dir):
     """Phase 9: the training app (``apps/run_training.py``) on an on-disk
     dataset at the app's flagship width. Returns each kernel's launches over
-    the main path (the app runs and the prediction from best.ckpt)."""
+    the main path (the app runs and the prediction from best.ckpt); copies
+    best.ckpt and training_args.json into ``keep_dir`` for the closed-loop
+    app."""
     import dataclasses
     import tempfile
 
@@ -1661,6 +1694,8 @@ def run_train_app(resident_step_ms):
             raise AssertionError(f"train_app prediction: {traj.shape}, flash vs eager {err}")
         del predictor, fixed
         torch.cuda.empty_cache()
+        for name in ("best.ckpt", "training_args.json"):
+            shutil.copy(os.path.join(ckpt_dir, name), keep_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase("train_app", task=APP_TASK, data_type="rgbd_and_mesh", cameras=1, image=IMAGE,
@@ -1679,6 +1714,297 @@ def run_train_app(resident_step_ms):
                                data_type=config.DataType(frozen.data_type).value)),
           seconds=time.perf_counter() - t_phase)
     return launches
+
+
+# --------------------------------------------------------------------------
+# The datagen and closed-loop apps on a demo recorded in the scene world
+# --------------------------------------------------------------------------
+
+LOOP_TASK = "cube_stacking"
+LOOP_CUBE_HALF = 0.04  # the scene world's cubes (scripts/task_success_experiment.py)
+DATAGEN_FRAMES = 12  # --max_num_steps of the datagen app
+IDLE_FRAMES = 4  # datagen frames profiled for the idle share
+LOOP_STEPS = 24  # --terminate_after_n_steps of the policy run
+LOOP_STEPS_TO_GOAL = 4  # --max_num_steps_to_goal: several goals in LOOP_STEPS
+
+
+def summary_ms(times):
+    """p50 / q1 / q3 (ms) and the count of a list of ms."""
+    if len(times) < 2:
+        return dict(p50_ms=times[0] if times else None, reps=len(times))
+    p50, q1, q3 = quartiles(times)
+    return dict(p50_ms=p50, q1_ms=q1, q3_ms=q3, reps=len(times))
+
+
+def record_loop_demo(root):
+    """One cube_stacking demo of the port's scripted expert in the port's
+    scene world at IMAGE x IMAGE (the table camera recorded as 'wrist', with
+    segmentation) and its scene.json; the expert's stack is checked by the
+    task's evaluator. Returns (demo path, frames, seconds)."""
+    from nvblox_mindmap_torch.closed_loop import scripted
+    from nvblox_mindmap_torch.closed_loop.evaluators import CubeStackingEvaluator
+
+    t0 = time.perf_counter()
+    env = scripted.make_cube_stacking_env(0, cube_half=LOOP_CUBE_HALF, image_size=IMAGE)
+    goals = scripted.scripted_stack_goals(env.initial_objects, LOOP_CUBE_HALF)
+    demo = os.path.join(root, "demo_00000")
+    evaluator = CubeStackingEvaluator(num_cubes=2, cube_side_length=2 * LOOP_CUBE_HALF)
+    evaluator.start_demo("demo_00000", env)
+    frames = scripted.record_scripted_demo(demo, env, goals)
+    scripted.write_scene_json(demo, env)
+    evaluator.evaluate_step(env)
+    if not evaluator.current_success or frames <= DATAGEN_FRAMES:
+        raise AssertionError(f"record: the expert's demo ({frames} frames) did not stack")
+    return demo, frames, time.perf_counter() - t0
+
+
+def run_datagen_app(root, npz):
+    """Phase 10: ``apps/run_datagen.py`` on a recorded demo at the task's
+    mapping config scaled for IMAGE, 768-d RADIO features, the serialized
+    map written. Returns the demo's path."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from nvblox_mindmap_torch.apps import run_datagen as app
+    from nvblox_mindmap_torch.data import item_io
+    from nvblox_mindmap_torch.embodiments.registry import make_embodiment_for_task
+    from nvblox_mindmap_torch.mapping.constants import MapperId, MappingConfig
+    from nvblox_mindmap_torch.mapping.mapper import Mapper
+    from nvblox_mindmap_torch.mapping.voxel_grid import state_to_numpy
+    from nvblox_mindmap_torch.utils import timers
+
+    t_phase = time.perf_counter()
+    demo, frames, record_s = record_loop_demo(root)
+    live = {}
+    real = app.process_demo
+
+    def keep_mapper(*args, **kwargs):
+        live["mapper"] = real(*args, **kwargs)
+        return live["mapper"]
+
+    flags = ["--task", LOOP_TASK, "--dataset", root, "--demos_datagen", "0",
+             "--feature_type", "radio_v25_b", "--backbone_weights", npz,
+             "--feature_image_size", f"{PATCHES},{PATCHES}", "--image_size", f"{IMAGE},{IMAGE}",
+             "--max_num_steps", str(DATAGEN_FRAMES), "--save_serialized_nvblox_map_to_disk", "1",
+             "--validate_demos_with_gt_poses", "1"]
+    timers.reset_timers()
+    with mock.patch.object(app, "process_demo", keep_mapper):
+        app_ms = host_ms(lambda: app.main(flags))
+    parts = {name.split("/")[1]: summary_ms([t * 1e3 for t in timers.timer_samples(name)])
+             for name in ("datagen/decay", "datagen/compute_features", "datagen/integrate",
+                          "datagen/export_mesh")}
+    if any(p["reps"] != DATAGEN_FRAMES for p in parts.values()):
+        raise AssertionError(f"datagen_app: timers {parts}")
+
+    # Every frame's item reads back through the dataset's reader, fp16 768-d.
+    vertices = []
+    for t in range(DATAGEN_FRAMES):
+        path = os.path.join(demo, f"{t}.nvblox_vertex_features.zst")
+        raw = item_io.unpickle_zst(path)
+        item = item_io.load_item(path)
+        n = len(raw["vertices"])
+        if (raw["vertices"].dtype, raw["features"].dtype) != (np.float16, np.float16) or (
+                raw["features"].shape != (n, FEATURE_DIM) or raw["channel_length"] != FEATURE_DIM
+                or item["features"].shape != (n, FEATURE_DIM) or n == 0
+                or not np.isfinite(item["features"]).all()):
+            raise AssertionError(f"datagen_app: frame {t} item {raw['vertices'].shape} "
+                                 f"{raw['features'].dtype} {raw['features'].shape}")
+        vertices.append(n)
+    if os.path.exists(os.path.join(demo, f"{DATAGEN_FRAMES}.nvblox_vertex_features.zst")):
+        raise AssertionError("datagen_app: --max_num_steps was not held")
+
+    # The serialized map reloads equal to the live state, bit for bit.
+    mapper = live["mapper"]
+    loaded = Mapper.from_file(os.path.join(demo, "nvblox_map_static.nvblx"), device="cuda")
+    if loaded.configs != mapper.configs:
+        raise AssertionError("datagen_app: the map file's config differs")
+    live_state = state_to_numpy(mapper.states[MapperId.STATIC])
+    file_state = state_to_numpy(loaded.states[MapperId.STATIC])
+    for name, value in live_state.items():
+        if value.dtype != file_state[name].dtype or not np.array_equal(value, file_state[name]):
+            raise AssertionError(f"datagen_app: the reloaded map's {name} differs")
+    map_mb = os.path.getsize(os.path.join(demo, "nvblox_map_static.nvblx")) / 1e6
+    cfg = mapper.configs[MapperId.STATIC]
+    live_pages = int(live_state["num_pages"])
+    outcome = int(np.load(os.path.join(demo, "demo_successful.npy")))
+    del loaded, live, mapper, live_state, file_state
+    torch.cuda.empty_cache()
+
+    # Device busy time over IDLE_FRAMES frames of process_demo against their
+    # host-clock time: the idle share (the feature extractor built outside).
+    mapping = MappingConfig.for_task(LOOP_TASK, feature_dim=FEATURE_DIM).scaled_for_image_size(
+        (IMAGE, IMAGE))
+    feature_fn = app.make_mapping_feature_fn("radio_v25_b", mapping.upscaled_feature_image_size,
+                                             npz, (PATCHES, PATCHES), device="cuda")
+    embodiment = make_embodiment_for_task(LOOP_TASK)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall_ms = host_ms(lambda: real(demo, embodiment, mapping, feature_fn,
+                                       max_num_steps=IDLE_FRAMES, device="cuda"))
+    busy_ms = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    del feature_fn
+    torch.cuda.empty_cache()
+    phase("datagen_app", task=LOOP_TASK, image=IMAGE, recorded_frames=frames,
+          record_s=record_s, fused_frames=DATAGEN_FRAMES, feature_dim=FEATURE_DIM,
+          map_grid=list(cfg.grid_shape), voxel_size_m=cfg.voxel_size_m,
+          map_pages=cfg.max_feature_pages, live_pages=live_pages,
+          erosions=dict(static=cfg.static_mask_erosion_iterations,
+                        valid_depth=cfg.valid_depth_mask_erosion_iterations),
+          vertices_per_frame=vertices, app_ms=app_ms, parts_per_frame=parts,
+          map_mb=map_mb, map_reloads_bit_for_bit=True, gt_validation_outcome=outcome,
+          idle=dict(frames=IDLE_FRAMES, wall_ms=wall_ms, device_busy_ms=busy_ms,
+                    device_idle_share=1 - busy_ms / wall_ms),
+          seconds=time.perf_counter() - t_phase)
+    return demo
+
+
+def run_closed_loop_app(root, checkpoint, npz):
+    """Phase 11: ``apps/run_closed_loop_policy.py`` on the recorded demo in
+    the scene world, with the training app's best.ckpt: the app's flagship
+    (rgbd_and_mesh, the ego camera at IMAGE, 2048 sampled 768-d vertices,
+    RADIO mapping features), DDIM-10. Then the ground-truth goals on the
+    same demo. Returns each kernel's launches over the policy run."""
+    import collections
+    import contextlib
+    import json
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from nvblox_mindmap_torch.apps import run_closed_loop_policy as app
+    from nvblox_mindmap_torch.closed_loop import policies, scene
+    from nvblox_mindmap_torch.mapping.mapper import Mapper
+    from nvblox_mindmap_torch.models.converter import (
+        apply_inference_settings,
+        convert_to_flash_attention,
+    )
+    from nvblox_mindmap_torch.models.diffuser_actor import prepare_inputs
+    from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
+
+    t_phase = time.perf_counter()
+    times = collections.defaultdict(list)
+    last = {}
+
+    def timed(name, fn, keep=False):
+        def wrapper(*args, **kwargs):
+            if keep:
+                last.update(policy=args[0], env=args[1])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    idle = {}
+
+    def profiled(fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            busy = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+            idle.update(wall_ms=wall, device_busy_ms=busy, device_idle_share=1 - busy / wall)
+            return out
+        return wrapper
+
+    def feature_fns(make):
+        def wrapper(*args, **kwargs):
+            return timed("feature_fn", make(*args, **kwargs))
+        return wrapper
+
+    eval_path = os.path.join(root, "closed_loop_eval.json")
+    flags = ["--task", LOOP_TASK, "--dataset", root, "--demos_closed_loop", "0"]
+    policy_flags = flags + [
+        "--checkpoint", checkpoint, "--backbone_weights", npz,
+        "--serving_scheduler", "ddim", "--serving_num_inference_steps", str(CLOSED_LOOP_STEPS),
+        "--max_num_steps_to_goal", str(LOOP_STEPS_TO_GOAL),
+        "--terminate_after_n_steps", str(LOOP_STEPS), "--eval_file_path", eval_path]
+    Policy, World = policies.NvbloxDiffuserActorPolicy, scene.SceneKinematicEnvironment
+    with contextlib.ExitStack() as patches:
+        for owner, name, value in (
+                (World, "get_cameras", timed("render", World.get_cameras)),
+                (World, "step", timed("env_step", World.step)),
+                (Policy, "step", timed("sim_step", Policy.step)),
+                (Policy, "get_new_goal", timed("goal", Policy.get_new_goal, keep=True)),
+                (Mapper, "decay", timed("decay", Mapper.decay)),
+                (policies, "nvblox_integrate", timed("integrate", policies.nvblox_integrate)),
+                (app, "make_feature_fn", feature_fns(app.make_feature_fn)),
+                (app, "run_closed_loop_policy", profiled(app.run_closed_loop_policy))):
+            patches.enter_context(mock.patch.object(owner, name, value))
+        reset_flash_counts()
+        app_ms = host_ms(lambda: last.update(summary=app.main(policy_flags, "scene")))
+        counts = flash_counts()
+    goals = len(times["goal"])
+    T = CLOSED_LOOP_STEPS
+    expected = {"flash_attention_split": goals * (3 + 2 * T),
+                "flash_attention_tile": goals * 8 * T}
+    if goals < 3 or counts != expected:
+        raise AssertionError(f"closed_loop_app: {counts} flash launches over {goals} goals, "
+                             f"expected {expected}")
+    summary = last["summary"]
+    with open(eval_path) as f:
+        eval_file = json.load(f)
+    if summary["num_demos"] != 1 or "summary" not in eval_file:
+        raise AssertionError(f"closed_loop_app: summary {summary}, eval file {list(eval_file)}")
+
+    # One goal of the app's policy through the kernels vs eager attention,
+    # and its token counts: the app's flagship.
+    policy, env = last["policy"], last["env"]
+    batch = policy._model_inputs(env)
+    with torch.no_grad():
+        fixed = policy.model.encode_prepared(
+            prepare_inputs(batch, policy.bounds, policy.model.config, device="cuda"),
+            impl="eager")
+    tokens = (fixed["context_feats"].shape[1], 1 + fixed["fps_feats"].shape[1])
+    if tokens != (APP_CONTEXT, APP_SELF):
+        raise AssertionError(f"closed_loop_app: context and self-attention tokens {tokens}")
+    init = torch.randn((1, 1, 1, 9), generator=torch.Generator(device="cuda").manual_seed(6),
+                       device="cuda")
+    set_default_attention_impl("eager")
+    traj_eager, _ = policy.predict(batch, init)
+    apply_inference_settings(convert_to_flash_attention())
+    traj_flash, _ = policy.predict(batch, init)
+    set_default_attention_impl("eager")
+    err = float(np.abs(traj_flash - traj_eager).max())
+    if not (err <= TRAJ_ATOL and np.isfinite(traj_flash).all()):
+        raise AssertionError(f"closed_loop_app: flash vs eager goal {err} > {TRAJ_ATOL}")
+    del policy, env, last["policy"], last["env"], fixed
+    torch.cuda.empty_cache()
+
+    # The ground-truth goals on the same demo re-earn the task's success.
+    gt_path = os.path.join(root, "closed_loop_gt_eval.json")
+    gt_ms = host_ms(lambda: last.update(gt=app.main(
+        flags + ["--demo_mode", "execute_gt_goals", "--eval_file_path", gt_path], "scene")))
+    gt = last["gt"]
+    if gt["success_rate"] != 1.0 or gt["mean_num_stacked_cubes"] < 2 or not os.path.exists(
+            gt_path):
+        raise AssertionError(f"closed_loop_app: ground-truth goals {gt}")
+    steps = len(times["sim_step"])
+    phase("closed_loop_app", task=LOOP_TASK, model="rgbd_and_mesh", cameras=1, image=IMAGE,
+          context_tokens=tokens[0], self_attention_tokens=tokens[1], vertices=VERTICES,
+          feature_dim=FEATURE_DIM, sampler=f"ddim{T}", steps=steps, goals=goals,
+          launches=counts, launches_per_goal={k: n // goals for k, n in counts.items()},
+          flash_vs_eager_max_abs_err=err, summary=summary, app_ms=app_ms,
+          sim_step=dict(summary_ms(times["sim_step"]),
+                        parts={k: summary_ms(times[k]) for k in
+                               ("render", "decay", "feature_fn", "integrate", "env_step")}),
+          goal=summary_ms(times["goal"]), idle=idle,
+          gt=dict(summary=gt, app_ms=gt_ms), seconds=time.perf_counter() - t_phase)
+    return counts
 
 
 def main() -> int:
@@ -1724,8 +2050,19 @@ def main() -> int:
     train_launches, resident_step_ms = run_training_phase(smi)
     for kernel, n in train_launches.items():
         launches[kernel] = launches.get(kernel, 0) + n
-    for kernel, n in run_train_app(resident_step_ms).items():
-        launches[kernel] = launches.get(kernel, 0) + n
+    work = tempfile.mkdtemp(prefix="mindmap_loop_")
+    try:
+        for kernel, n in run_train_app(resident_step_ms, work).items():
+            launches[kernel] = launches.get(kernel, 0) + n
+        npz = os.path.join(work, "radio_v25_b.npz")
+        save_random_backbone(npz)
+        dataset = os.path.join(work, "dataset")
+        run_datagen_app(dataset, npz)
+        for kernel, n in run_closed_loop_app(dataset, os.path.join(work, "best.ckpt"),
+                                             npz).items():
+            launches[kernel] = launches.get(kernel, 0) + n
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     # Each kernel at the flagship shape it serves most; beside it, its time
     # at the mesh path's shape, which the line reported before the flagship
@@ -1768,6 +2105,9 @@ def main() -> int:
             "mesh_path_shape": mesh_shape,
             "app_path_ms": checks[app_key]["kernel_ms"],
             "app_path_shape": app_shape,
+            "closed_loop_app_ms": checks[(app_key[0], 1)]["kernel_ms"],
+            "closed_loop_app_shape": app_shape.replace("training app eval", "closed-loop app")
+                                              .replace(f"B={TRAIN_BATCH}", "B=1"),
         })
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

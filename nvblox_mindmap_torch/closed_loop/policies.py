@@ -1,7 +1,14 @@
-"""The closed-loop policy: live mapping plus keypose prediction.
+"""Closed-loop policies: live mapping plus keypose prediction, and the
+ground-truth and goal-sequence policies.
 
-Port of ``nvblox_mindmap_tpu/closed_loop/policies.py:150-496`` (upstream
-``closed_loop/policies/nvblox_diffuser_actor_policy.py``):
+Port of ``nvblox_mindmap_tpu/closed_loop/policies.py`` (upstream
+``closed_loop/policies/*``):
+
+- ``GroundTruthPolicy``: serves a recorded demo's keyposes in order (demo
+  validation, the ``execute_gt_goals`` mode), read through the port's
+  ``DemoDataset`` and keypose detection;
+- ``GoalPolicy`` and ``get_dummy_policy_for_embodiment``: a hardcoded goal
+  sequence;
 
 - ``NvbloxDiffuserActorPolicy.step``, every sim step: decay the map and
   fuse each camera (TSDF, color, deep features);
@@ -9,9 +16,6 @@ Port of ``nvblox_mindmap_tpu/closed_loop/policies.py:150-496`` (upstream
   the vertex budget, back-project the RGB-D cameras, and run the reverse
   diffusion sampler on the model's device;
 - ``aggregate_trajectory_samples`` and ``trajectory_to_policy_states``.
-
-The ground-truth and goal-sequence policies need the dataset and app
-layers and come with them.
 """
 from __future__ import annotations
 
@@ -25,6 +29,8 @@ from nvblox_mindmap_torch.closed_loop.environment import (
     EnvironmentBase,
     dynamic_mask_from_segmentation,
 )
+from nvblox_mindmap_torch.data.dataset import DemoDataset
+from nvblox_mindmap_torch.data.keyposes import KeyposeDetectionMode
 from nvblox_mindmap_torch.data.vertex_sampling import (
     VertexSamplingMethod,
     sample_to_n_vertices,
@@ -58,6 +64,101 @@ class PolicyBase:
     def get_new_goal(self, env: EnvironmentBase) -> List[np.ndarray]:
         """Return the next goal policy state(s)."""
         raise NotImplementedError
+
+
+class GroundTruthPolicy(PolicyBase):
+    """Serves recorded keypose policy states in order."""
+
+    def __init__(self, keypose_policy_states: np.ndarray):
+        self.goals = list(np.asarray(keypose_policy_states))
+        self._next = 0
+
+    @classmethod
+    def from_demo(
+        cls,
+        demo_path: str,
+        embodiment: EmbodimentBase,
+        extra_keyposes_around_grasp_events,
+        keypose_detection_mode: KeyposeDetectionMode,
+    ) -> "GroundTruthPolicy":
+        robot_states = DemoDataset.load_robot_states(demo_path)
+        keyposes = embodiment.extract_keypose_indices(
+            robot_states, extra_keyposes_around_grasp_events, keypose_detection_mode
+        )
+        policy_states = embodiment.policy_states_from_robot_states(
+            robot_states, use_keyposes=True
+        )
+        return cls(policy_states[keyposes])
+
+    @property
+    def exhausted(self) -> bool:
+        return self._next >= len(self.goals)
+
+    def get_new_goal(self, env: EnvironmentBase) -> List[np.ndarray]:
+        if self.exhausted:
+            return []
+        goal = self.goals[self._next]
+        self._next += 1
+        return [goal]
+
+
+class GoalPolicy(PolicyBase):
+    """Executes a hardcoded sequence of goal policy states
+    (reference: closed_loop/policies/goal_policy.py:24-71).
+
+    Args:
+        goal_states: list of flat policy-state arrays (embodiment codec).
+        repeat: cycle the sequence when exhausted; otherwise emit [] once done
+            (the reference returns [None]; our runner treats [] as no-goal).
+    """
+
+    def __init__(self, goal_states: List[np.ndarray], repeat: bool = True):
+        self.goal_states = [np.asarray(g, np.float32) for g in goal_states]
+        self.repeat = repeat
+        self.reset()
+
+    def get_new_goal(self, env: EnvironmentBase) -> List[np.ndarray]:
+        if not self.goal_states:
+            return []
+        if self.current_goal_idx == len(self.goal_states):
+            if not self.repeat:
+                return []
+            self.current_goal_idx = 0
+        goal = self.goal_states[self.current_goal_idx]
+        self.current_goal_idx += 1
+        return [goal]
+
+    def reset(self) -> None:
+        self.current_goal_idx = 0
+
+
+def get_dummy_policy_for_embodiment(embodiment_type) -> GoalPolicy:
+    """Test policy with the reference's hardcoded goal sequences
+    (goal_policy.py:74-139): the arm oscillates along y in front of the
+    robot; the humanoid moves both hands up/down while turning the head.
+    Policy states use the flat embodiment codecs
+    (arm: pos3+quat4+closedness; humanoid: left 8 + right 8 + head yaw)."""
+    if embodiment_type == EmbodimentType.ARM:
+        goals = [
+            np.asarray([0.6, 0.25, 0.25, 0, 1, 0, 0, 0.0], np.float32),
+            np.asarray([0.6, 0.05, 0.25, 0, 1, 0, 0, 0.0], np.float32),
+        ]
+    elif embodiment_type == EmbodimentType.HUMANOID:
+        left = [-0.2236, 0.2580, 1.0964, 0.5039, 0.4955, -0.5064, 0.4941]
+        right = [0.0605, 0.2517, 1.1063, 0.4773, 0.5318, -0.4857, 0.5034]
+        up = np.asarray([0, 0, 0.2, 0, 0, 0, 0], np.float64)
+        fwd_up = np.asarray([0.3, 0, 0.2, 0, 0, 0, 0], np.float64)
+        goals = [
+            np.concatenate([left, [1.0], right, [0.0], [-1.57]]).astype(
+                np.float32
+            ),
+            np.concatenate(
+                [np.add(left, up), [0.0], np.add(right, fwd_up), [1.0], [1.57]]
+            ).astype(np.float32),
+        ]
+    else:
+        raise ValueError(f"Invalid embodiment type: {embodiment_type}")
+    return GoalPolicy(goal_states=goals)
 
 
 class NvbloxDiffuserActorPolicy(PolicyBase):

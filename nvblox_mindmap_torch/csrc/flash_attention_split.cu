@@ -9,9 +9,14 @@
 // (B,H,S,D), an optional (B,S) inclusion mask (nonzero = valid key), a
 // streaming softmax whose running max starts at -1e9, p multiplied by the
 // mask, and a safe divide by l > 0 ? l : 1, so a row with no valid key comes
-// out as exact zeros. Head dims up to 128 (the K row of a thread's key sits
-// in registers, its V row goes straight to shared memory). q, k, v and o
-// come with their own
+// out as exact zeros. Any head dim D: a score sums q.k over D in chunks of
+// at most 128 (the chunk of a thread's K row sits in registers), and each
+// block writes one chunk of at most 128 output columns, the one blockIdx.z
+// names (its V rows go straight to shared memory). So D > 128 is one launch
+// of ceil(D / 128) times the blocks, each recomputing the scores for its own
+// columns: ceil(D / 128) times the q.k work, with every block's registers and
+// shared memory at the D = 128 budget. D <= 128 takes instances compiled
+// without the chunk loop. q, k, v and o come with their own
 // batch, head and sequence strides; only the last dim is unit-stride.
 //
 // What bounds it on this card. The model's few-query calls are the
@@ -106,17 +111,33 @@ __device__ __forceinline__ void store_row(const float* __restrict__ src, int D,
   }
 }
 
+// DP is the width of a chunk of the head dim: D rounded up to 16, 32, 64 or
+// 128 for D <= 128, else 128.
 template <int DP>
 constexpr int smem_floats() {
-  return kThreads * (DP + 1)    // v_s: the chunk's V rows, column D = 1
+  return kThreads * (DP + 1)    // v_s: the key chunk's V rows, column Dv = 1
          + kMaxL * kThreads     // p_s
-         + kMaxL * DP           // q_s
+         + kMaxL * DP           // q_s: one chunk of the head dim
          + kWarps * kMaxL       // red_s
          + kMaxL                // m_s
-         + kMaxL * (DP + 1);    // acc_s, column D = l
+         + kMaxL * (DP + 1);    // acc_s, column Dv = l
 }
 
+// q's columns [d0, d0 + Dc) of every query into q_s, zeros elsewhere.
 template <int DP>
+__device__ __forceinline__ void load_q(const float* __restrict__ q_bh,
+                                       int64_t q_sl, int L, int d0, int Dc,
+                                       float* q_s) {
+  for (int i = threadIdx.x; i < kMaxL * DP; i += kThreads) {
+    const int l = i / DP, d = i % DP;
+    q_s[i] = (l < L && d < Dc) ? q_bh[l * q_sl + d0 + d] : 0.f;
+  }
+}
+
+// kChunked: D > 128, so the scores walk the head dim's chunks and blockIdx.z
+// picks the output columns. Only the DP = 128 kernel has the chunked
+// instance; the others compile to one chunk of all of D.
+template <int DP, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 flash_split_kernel(const Params p) {
   extern __shared__ float smem[];
@@ -138,6 +159,11 @@ flash_split_kernel(const Params p) {
   const int h = bh % p.H;
   const int L = p.L, S = p.S, D = p.D;
   const bool vec = p.vec != 0;
+  // The head dim's chunks for the scores, and this block's output columns
+  // [col0, col0 + Dv).
+  const int n_chunks = kChunked ? (D + DP - 1) / DP : 1;
+  const int col0 = kChunked ? blockIdx.z * DP : 0;
+  const int Dv = kChunked ? min(DP, D - col0) : D;
 
   const float* q_bh = p.q + b * p.q_sb + h * p.q_sh;
   const float* k_bh = p.k + b * p.k_sb + h * p.k_sh;
@@ -145,10 +171,7 @@ flash_split_kernel(const Params p) {
   float* o_bh = p.o + b * p.o_sb + h * p.o_sh;
   const uint8_t* mask_b = p.mask == nullptr ? nullptr : p.mask + (int64_t)b * S;
 
-  for (int i = tid; i < kMaxL * DP; i += kThreads) {
-    const int l = i / DP, d = i % DP;
-    q_s[i] = (l < L && d < D) ? q_bh[l * p.q_sl + d] : 0.f;
-  }
+  if (!kChunked) load_q<DP>(q_bh, p.q_sl, L, 0, D, q_s);
   for (int i = tid; i < kMaxL * (DP + 1); i += kThreads) acc_s[i] = 0.f;
   __syncthreads();
 
@@ -166,26 +189,49 @@ flash_split_kernel(const Params p) {
     const int s = c0 + tid;
     const bool in = s < s_end;
     const bool valid = in && (mask_b == nullptr || mask_b[s] != 0);
-    float kr[DP];
+    // The V row first, so that its loads and the K row's go out together.
     float* v_row = v_s + tid * (DP + 1);
     if (in) {
-      load_row<DP>(k_bh + s * p.k_ss, D, vec, kr);
-      store_row<DP>(v_bh + s * p.v_ss, D, vec, v_row);
+      store_row<DP>(v_bh + s * p.v_ss + col0, Dv, vec, v_row);
     } else {
 #pragma unroll
-      for (int d = 0; d < DP; ++d) kr[d] = v_row[d] = 0.f;
+      for (int d = 0; d < DP; ++d) v_row[d] = 0.f;
     }
-    v_row[D] = 1.f;  // p * 1 summed over the keys is l
+    v_row[Dv] = 1.f;  // p * 1 summed over the keys is l
+
+    float dot[kMaxL];
+#pragma unroll
+    for (int l = 0; l < kMaxL; ++l) dot[l] = 0.f;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int d0 = c * DP;
+      if (kChunked) {  // q_s holds chunk c of the queries
+        __syncthreads();
+        load_q<DP>(q_bh, p.q_sl, L, d0, min(DP, D - d0), q_s);
+        __syncthreads();
+      }
+      float kr[DP];
+      if (in) {
+        load_row<DP>(k_bh + s * p.k_ss + d0, kChunked ? min(DP, D - d0) : D, vec,
+                     kr);
+      } else {
+#pragma unroll
+        for (int d = 0; d < DP; ++d) kr[d] = 0.f;
+      }
+#pragma unroll
+      for (int l = 0; l < kMaxL; ++l)
+        if (l < L) {
+#pragma unroll
+          for (int d = 0; d < DP; ++d)
+            dot[l] = fmaf(q_s[l * DP + d], kr[d], dot[l]);
+        }
+    }
 
     float sc[kMaxL];
 #pragma unroll
     for (int l = 0; l < kMaxL; ++l) {
       sc[l] = kNegInf;
       if (l < L) {
-        float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < DP; ++d) dot = fmaf(q_s[l * DP + d], kr[d], dot);
-        if (valid) sc[l] = dot;
+        if (valid) sc[l] = dot[l];
         float x = sc[l];
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
@@ -214,11 +260,12 @@ flash_split_kernel(const Params p) {
     }
     __syncthreads();
 
-    // acc[l][d] (d < D) and l[l] (d == D): sum over the chunk of p * [V | 1].
+    // acc[l][d] (d < Dv) and l[l] (d == Dv): sum over the key chunk of
+    // p * [V | 1].
     const int n_keys = min(kThreads, s_end - c0);
-    for (int o = warp; o < L * (D + 1); o += kWarps) {
-      const int l = o / (D + 1);
-      const int d = o % (D + 1);
+    for (int o = warp; o < L * (Dv + 1); o += kWarps) {
+      const int l = o / (Dv + 1);
+      const int d = o % (Dv + 1);
       float sum = 0.f;
       for (int j = lane; j < n_keys; j += 32)
         sum = fmaf(p_s[l * kThreads + j], v_s[j * (DP + 1) + d], sum);
@@ -241,9 +288,9 @@ flash_split_kernel(const Params p) {
     if (tid == l) m_s[l] = m_run[l];
   cluster.sync();  // every block's (m, l, acc) is visible to the cluster
 
-  for (int o = rank + n_blocks * tid; o < L * D; o += n_blocks * kThreads) {
-    const int l = o / D;
-    const int d = o % D;
+  for (int o = rank + n_blocks * tid; o < L * Dv; o += n_blocks * kThreads) {
+    const int l = o / Dv;
+    const int d = o % Dv;
     float m = kNegInf;
     for (int r = 0; r < n_blocks; ++r)
       m = fmaxf(m, *cluster.map_shared_rank(m_s + l, r));
@@ -252,22 +299,22 @@ flash_split_kernel(const Params p) {
     for (int r = 0; r < n_blocks; ++r) {
       const float* acc_r = cluster.map_shared_rank(acc_s, r) + l * (DP + 1);
       const float scale = expf(*cluster.map_shared_rank(m_s + l, r) - m);
-      l_sum = fmaf(acc_r[D], scale, l_sum);
+      l_sum = fmaf(acc_r[Dv], scale, l_sum);
       acc = fmaf(acc_r[d], scale, acc);
     }
-    o_bh[l * p.o_sl + d] = acc / (l_sum > 0.f ? l_sum : 1.f);
+    o_bh[l * p.o_sl + col0 + d] = acc / (l_sum > 0.f ? l_sum : 1.f);
   }
   cluster.sync();  // no block leaves while another still reads its memory
 }
 
-template <int DP>
+template <int DP, bool kChunked = false>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<DP>();
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_split_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        flash_split_kernel<DP, kChunked>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
@@ -280,13 +327,13 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks, B * p.H, 1);
+  cfg.gridDim = dim3(blocks, B * p.H, kChunked ? (p.D + DP - 1) / DP : 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, flash_split_kernel<DP>, p);
+  return cudaLaunchKernelEx(&cfg, flash_split_kernel<DP, kChunked>, p);
 }
 
 bool aligned16(const void* ptr) {
@@ -303,8 +350,8 @@ extern "C" int flash_attention_split_fwd(
     int64_t q_sl, int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
     int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_sl,
     void* stream) {
-  if (B <= 0 || H <= 0 || L <= 0 || L > kMaxL || S < 0 || D <= 0 || D > 128 ||
-      (int64_t)B * H > 65535)
+  if (B <= 0 || H <= 0 || L <= 0 || L > kMaxL || S < 0 || D <= 0 ||
+      (int64_t)B * H > 65535 || (D + 127) / 128 > 65535)
     return (int)cudaErrorInvalidValue;
   const bool vec = D % 4 == 0 && aligned16(k) && aligned16(v) &&
                    (k_sb | k_sh | k_ss | v_sb | v_sh | v_ss) % 4 == 0;
@@ -319,8 +366,10 @@ extern "C" int flash_attention_split_fwd(
     err = launch<32>(p, B, st);
   else if (D <= 64)
     err = launch<64>(p, B, st);
-  else
+  else if (D <= 128)
     err = launch<128>(p, B, st);
+  else
+    err = launch<128, true>(p, B, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -8,9 +8,10 @@
 // (B,H,S,D), an optional (B,S) inclusion mask (nonzero = valid key), a
 // streaming softmax whose running max starts at -1e9, p multiplied by the
 // mask, and a safe divide by l > 0 ? l : 1, so a row with no valid key comes
-// out as exact zeros. Head dims up to 128 (at 128 one pair of warps: two
-// pairs' K and V stages would not fit in shared memory). q, k, v and o come
-// with their own
+// out as exact zeros. Any head dim D: a score sums q.k over D in chunks of
+// at most 128, and each block writes one chunk of at most 128 output columns,
+// the one blockIdx.z names (at 128 one pair of warps: two pairs' K and V
+// stages would not fit in shared memory). q, k, v and o come with their own
 // batch, head and sequence strides; only the last dim is unit-stride.
 //
 // What bounds it on this card. The model's many-query calls are its
@@ -48,6 +49,17 @@
 // reads are free of bank conflicts. Not wgmma: it needs 64-row tiles, which
 // bring back the 56-block grid, and at ~80 MFLOP per call filling the SMs
 // matters more than the tensor cores' peak rate.
+//
+// Head dims above 128. The pipeline walks phases, one per (key step, chunk of
+// the head dim): a phase loads its chunk of the step's K rows (and, in the
+// step's last phase, the V rows of the block's output columns) while the
+// previous phase adds its chunk of Q.K^T to the scores; the step's last phase
+// then runs the softmax and P.V. Q's fragments of a chunk are read again from
+// global memory (L1 / L2) in each phase. Every block recomputes the scores
+// for its own columns: ceil(D / 128) times the Q.K^T work, at the D = 128
+// budget of registers and shared memory. D <= 128 takes instances compiled
+// without the chunks (a step is one phase), so the scores of one step are not
+// kept live across the loop.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -144,7 +156,10 @@ constexpr int smem_floats() {
          + 2 * kTileN * PAIRS;                  // valid flags, two stages
 }
 
-template <int DP, int PAIRS>
+// kChunked: D > 128, so a key step walks the head dim's chunks and
+// blockIdx.z picks the output columns. Only the DP = 128 kernel has the
+// chunked instance; the others compile to one phase per step.
+template <int DP, int PAIRS, bool kChunked>
 __global__ void __launch_bounds__(32 * kRowWarps * PAIRS)
 flash_tile_kernel(const Params p) {
   constexpr int kThreads = 32 * kRowWarps * PAIRS;
@@ -168,6 +183,11 @@ flash_tile_kernel(const Params p) {
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int L = p.L, S = p.S, D = p.D;
+  // The head dim's chunks for the scores, and this block's output columns
+  // [col0, col0 + Dv).
+  const int n_chunks = kChunked ? (D + DP - 1) / DP : 1;
+  const int col0 = kChunked ? blockIdx.z * DP : 0;
+  const int Dv = kChunked ? min(DP, D - col0) : D;
 
   const float* q_bh = p.q + b * p.q_sb + h * p.q_sh;
   const float* k_bh = p.k + b * p.k_sb + h * p.k_sh;
@@ -179,52 +199,72 @@ flash_tile_kernel(const Params p) {
   const int r0 = blockIdx.x * kBlockM + row_warp * kWarpRows + g;
   const int r1 = r0 + 8;
 
-  // Q as A fragments, split once: a0 (g, t), a1 (g+8, t), a2 (g, t+4),
-  // a3 (g+8, t+4) of each 16 x 8 block of the head dim.
+  // Q's columns [d0, d0 + DP) as A fragments, split: a0 (g, t), a1 (g+8, t),
+  // a2 (g, t+4), a3 (g+8, t+4) of each 16 x 8 block.
   uint32_t qa_hi[KD][4], qa_lo[KD][4];
+  auto load_q = [&](int d0) {
 #pragma unroll
-  for (int kd = 0; kd < KD; ++kd) {
-    const int c0 = kd * 8 + t;
-    const int c1 = c0 + 4;
-    const float x[4] = {
-        (r0 < L && c0 < D) ? q_bh[r0 * p.q_sl + c0] : 0.f,
-        (r1 < L && c0 < D) ? q_bh[r1 * p.q_sl + c0] : 0.f,
-        (r0 < L && c1 < D) ? q_bh[r0 * p.q_sl + c1] : 0.f,
-        (r1 < L && c1 < D) ? q_bh[r1 * p.q_sl + c1] : 0.f,
-    };
+    for (int kd = 0; kd < KD; ++kd) {
+      const int c0 = d0 + kd * 8 + t;
+      const int c1 = c0 + 4;
+      const float x[4] = {
+          (r0 < L && c0 < D) ? q_bh[r0 * p.q_sl + c0] : 0.f,
+          (r1 < L && c0 < D) ? q_bh[r1 * p.q_sl + c0] : 0.f,
+          (r0 < L && c1 < D) ? q_bh[r0 * p.q_sl + c1] : 0.f,
+          (r1 < L && c1 < D) ? q_bh[r1 * p.q_sl + c1] : 0.f,
+      };
 #pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32(x[i], qa_hi[kd][i], qa_lo[kd][i]);
+      for (int i = 0; i < 4; ++i) split_tf32(x[i], qa_hi[kd][i], qa_lo[kd][i]);
+    }
+  };
+  load_q(0);
+
+  // Columns past the data of every K and V row stay zero: no copy writes
+  // them. With several chunks a K row's columns past D are zero-filled by
+  // the tail chunk's copy instead.
+  for (int row = tid; row < 2 * kStepN; row += kThreads) {
+    for (int d = kChunked ? DP : D; d < DP; ++d) k_s[row * kStride + d] = 0.f;
+    for (int d = Dv; d < DP; ++d) v_s[row * kStride + d] = 0.f;
   }
 
-  // Columns D..DP-1 of every K and V row stay zero: no copy writes them.
-  for (int row = tid; row < 4 * kStepN; row += kThreads)
-    for (int d = D; d < DP; ++d) smem[row * kStride + d] = 0.f;
-
-  // One key row of K and of V per thread; rows past S are zero-filled (the
-  // source address is clamped to row 0, a copy of zero bytes reads nothing).
-  auto load_step = [&](int step, int stage) {
+  // Phase (step, chunk) copies one key row's chunk of K per thread, and in
+  // the step's last phase its V row of the block's columns; rows past S are
+  // zero-filled (the source address is clamped to row 0, a copy of zero
+  // bytes reads nothing).
+  const int k_cols = kChunked ? DP : D;
+  auto load_phase = [&](int phase, int stage) {
+    const int step = phase / n_chunks;
+    const int d0 = (phase % n_chunks) * DP;
     const int s = step * kStepN + tid;
     const bool in = s < S;
     const int64_t sc = in ? s : 0;
     const float* k_row = k_bh + sc * p.k_ss;
-    const float* v_row = v_bh + sc * p.v_ss;
     float* k_dst = k_s + stage * kStage + tid * kStride;
-    float* v_dst = v_s + stage * kStage + tid * kStride;
+    const int width = d0 + k_cols <= D ? k_cols : D - d0;  // copied from K
     if (p.vec) {
-      for (int d = 0; d < D; d += 4) {
-        cp_async16(k_dst + d, k_row + d, in);
-        cp_async16(v_dst + d, v_row + d, in);
+      for (int d = 0; d < k_cols; d += 4) {
+        const bool ok = in && d < width;
+        cp_async16(k_dst + d, ok ? k_row + d0 + d : k_row, ok);
       }
     } else {
-      for (int d = 0; d < D; ++d) {
-        cp_async4(k_dst + d, k_row + d, in);
-        cp_async4(v_dst + d, v_row + d, in);
+      for (int d = 0; d < k_cols; ++d) {
+        const bool ok = in && d < width;
+        cp_async4(k_dst + d, ok ? k_row + d0 + d : k_row, ok);
+      }
+    }
+    if (phase % n_chunks == n_chunks - 1) {
+      const float* v_row = v_bh + sc * p.v_ss + col0;
+      float* v_dst = v_s + stage * kStage + tid * kStride;
+      if (p.vec) {
+        for (int d = 0; d < Dv; d += 4) cp_async16(v_dst + d, v_row + d, in);
+      } else {
+        for (int d = 0; d < Dv; ++d) cp_async4(v_dst + d, v_row + d, in);
       }
     }
     cp_async_commit();
   };
-  auto key_valid = [&](int step) {
-    const int s = step * kStepN + tid;
+  auto key_valid = [&](int phase) {
+    const int s = (phase / n_chunks) * kStepN + tid;
     return (s < S && (mask_b == nullptr || mask_b[s] != 0)) ? 1.f : 0.f;
   };
 
@@ -236,18 +276,22 @@ flash_tile_kernel(const Params p) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) o_acc[kd][i] = 0.f;
 
-  const int n_steps = (S + kStepN - 1) / kStepN;
-  if (n_steps > 0) {
-    load_step(0, 0);
+  const int n_phases = (S + kStepN - 1) / kStepN * n_chunks;
+  if (n_phases > 0) {
+    load_phase(0, 0);
     valid_s[tid] = key_valid(0);
   }
-  for (int it = 0; it < n_steps; ++it) {
+  // S = Q K^T for this warp's 16 rows x 64 keys: 8 accumulators of 16 x 8,
+  // summed over the step's phases.
+  float s_acc[kTileN / 8][4];
+  for (int it = 0; it < n_phases; ++it) {
     const int stage = it & 1;
-    const bool more = it + 1 < n_steps;
+    const int chunk = it % n_chunks;
+    const bool more = it + 1 < n_phases;
     float next_valid = 0.f;
     if (more) {
-      load_step(it + 1, stage ^ 1);
-      next_valid = key_valid(it + 1);  // stored after this step's compute
+      load_phase(it + 1, stage ^ 1);
+      next_valid = key_valid(it + 1);  // stored after this phase's compute
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -258,12 +302,13 @@ flash_tile_kernel(const Params p) {
     const float* vt = v_s + stage * kStage + pair * kTileN * kStride;
     const float* vl = valid_s + stage * kStepN + pair * kTileN;
 
-    // S = Q K^T for this warp's 16 rows x 64 keys: 8 accumulators of 16 x 8.
-    float s_acc[kTileN / 8][4];
+    if (kChunked) load_q(chunk * DP);
 #pragma unroll
     for (int n = 0; n < kTileN / 8; ++n) {
+      if (chunk == 0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s_acc[n][i] = 0.f;
+        for (int i = 0; i < 4; ++i) s_acc[n][i] = 0.f;
+      }
       const float* k_row = kt + (n * 8 + g) * kStride;  // b: (k = t, n = g)
 #pragma unroll
       for (int kd = 0; kd < KD; ++kd) {
@@ -273,71 +318,72 @@ flash_tile_kernel(const Params p) {
         mma_3xtf32(s_acc[n], qa_hi[kd], qa_lo[kd], b_hi, b_lo);
       }
     }
-
-    // Mask, then the online softmax on the fragments: c0, c1 are row r0 at
-    // keys 8n + 2t, 8n + 2t + 1; c2, c3 are row r1 at the same keys.
-    float valid[kTileN / 8][2];
-    float mx0 = kNegInf, mx1 = kNegInf;
+    if (chunk == n_chunks - 1) {
+      // Mask, then the online softmax on the fragments: c0, c1 are row r0 at
+      // keys 8n + 2t, 8n + 2t + 1; c2, c3 are row r1 at the same keys.
+      float valid[kTileN / 8][2];
+      float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-    for (int n = 0; n < kTileN / 8; ++n) {
-      valid[n][0] = vl[n * 8 + 2 * t];
-      valid[n][1] = vl[n * 8 + 2 * t + 1];
-      if (valid[n][0] == 0.f) s_acc[n][0] = s_acc[n][2] = kNegInf;
-      if (valid[n][1] == 0.f) s_acc[n][1] = s_acc[n][3] = kNegInf;
-      mx0 = fmaxf(mx0, fmaxf(s_acc[n][0], s_acc[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s_acc[n][2], s_acc[n][3]));
-    }
+      for (int n = 0; n < kTileN / 8; ++n) {
+        valid[n][0] = vl[n * 8 + 2 * t];
+        valid[n][1] = vl[n * 8 + 2 * t + 1];
+        if (valid[n][0] == 0.f) s_acc[n][0] = s_acc[n][2] = kNegInf;
+        if (valid[n][1] == 0.f) s_acc[n][1] = s_acc[n][3] = kNegInf;
+        mx0 = fmaxf(mx0, fmaxf(s_acc[n][0], s_acc[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s_acc[n][2], s_acc[n][3]));
+      }
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {  // the row's 4 lanes
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0);
-    const float mn1 = fmaxf(m1, mx1);
-    const float alpha0 = expf(m0 - mn0);
-    const float alpha1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= alpha0;
-    l1 *= alpha1;
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd) {
-      o_acc[kd][0] *= alpha0;
-      o_acc[kd][1] *= alpha0;
-      o_acc[kd][2] *= alpha1;
-      o_acc[kd][3] *= alpha1;
-    }
-#pragma unroll
-    for (int n = 0; n < kTileN / 8; ++n) {
-      // The mask factor keeps masked keys at exactly 0, even where every
-      // score of the row is kNegInf (there exp(s - m) = 1).
-      s_acc[n][0] = expf(s_acc[n][0] - mn0) * valid[n][0];
-      s_acc[n][1] = expf(s_acc[n][1] - mn0) * valid[n][1];
-      s_acc[n][2] = expf(s_acc[n][2] - mn1) * valid[n][0];
-      s_acc[n][3] = expf(s_acc[n][3] - mn1) * valid[n][1];
-      l0 += s_acc[n][0] + s_acc[n][1];
-      l1 += s_acc[n][2] + s_acc[n][3];
-    }
-
-    // O += P V, 8 keys per step in the order (0, 2, 4, 6, 1, 3, 5, 7): the
-    // C fragment of P is the A fragment as it stands.
-#pragma unroll
-    for (int j = 0; j < kTileN / 8; ++j) {
-      uint32_t a_hi[4], a_lo[4];
-      split_tf32(s_acc[j][0], a_hi[0], a_lo[0]);  // (g, col t = key 2t)
-      split_tf32(s_acc[j][2], a_hi[1], a_lo[1]);  // (g + 8, key 2t)
-      split_tf32(s_acc[j][1], a_hi[2], a_lo[2]);  // (g, col t+4 = key 2t+1)
-      split_tf32(s_acc[j][3], a_hi[3], a_lo[3]);  // (g + 8, key 2t+1)
-      const float* v0 = vt + (j * 8 + 2 * t) * kStride;  // b0: k = t
-      const float* v1 = v0 + kStride;                    // b1: k = t + 4
+      for (int off = 1; off < 4; off <<= 1) {  // the row's 4 lanes
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0);
+      const float mn1 = fmaxf(m1, mx1);
+      const float alpha0 = expf(m0 - mn0);
+      const float alpha1 = expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      l0 *= alpha0;
+      l1 *= alpha1;
 #pragma unroll
       for (int kd = 0; kd < KD; ++kd) {
-        uint32_t b_hi[2], b_lo[2];
-        split_tf32(v0[kd * 8 + g], b_hi[0], b_lo[0]);
-        split_tf32(v1[kd * 8 + g], b_hi[1], b_lo[1]);
-        mma_3xtf32(o_acc[kd], a_hi, a_lo, b_hi, b_lo);
+        o_acc[kd][0] *= alpha0;
+        o_acc[kd][1] *= alpha0;
+        o_acc[kd][2] *= alpha1;
+        o_acc[kd][3] *= alpha1;
       }
-    }
+#pragma unroll
+      for (int n = 0; n < kTileN / 8; ++n) {
+        // The mask factor keeps masked keys at exactly 0, even where every
+        // score of the row is kNegInf (there exp(s - m) = 1).
+        s_acc[n][0] = expf(s_acc[n][0] - mn0) * valid[n][0];
+        s_acc[n][1] = expf(s_acc[n][1] - mn0) * valid[n][1];
+        s_acc[n][2] = expf(s_acc[n][2] - mn1) * valid[n][0];
+        s_acc[n][3] = expf(s_acc[n][3] - mn1) * valid[n][1];
+        l0 += s_acc[n][0] + s_acc[n][1];
+        l1 += s_acc[n][2] + s_acc[n][3];
+      }
+
+      // O += P V, 8 keys per step in the order (0, 2, 4, 6, 1, 3, 5, 7): the
+      // C fragment of P is the A fragment as it stands.
+#pragma unroll
+      for (int j = 0; j < kTileN / 8; ++j) {
+        uint32_t a_hi[4], a_lo[4];
+        split_tf32(s_acc[j][0], a_hi[0], a_lo[0]);  // (g, col t = key 2t)
+        split_tf32(s_acc[j][2], a_hi[1], a_lo[1]);  // (g + 8, key 2t)
+        split_tf32(s_acc[j][1], a_hi[2], a_lo[2]);  // (g, col t+4 = key 2t+1)
+        split_tf32(s_acc[j][3], a_hi[3], a_lo[3]);  // (g + 8, key 2t+1)
+        const float* v0 = vt + (j * 8 + 2 * t) * kStride;  // b0: k = t
+        const float* v1 = v0 + kStride;                    // b1: k = t + 4
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd) {
+          uint32_t b_hi[2], b_lo[2];
+          split_tf32(v0[kd * 8 + g], b_hi[0], b_lo[0]);
+          split_tf32(v1[kd * 8 + g], b_hi[1], b_lo[1]);
+          mma_3xtf32(o_acc[kd], a_hi, a_lo, b_hi, b_lo);
+        }
+      }
+    }  // the step's last phase
 
     if (more) valid_s[(stage ^ 1) * kStepN + tid] = next_valid;
     __syncthreads();  // this stage is free for the load two steps on
@@ -392,34 +438,36 @@ flash_tile_kernel(const Params p) {
         o_acc[kd][3] * sa1 + ob[3] * sb1,
     };
     const int c = kd * 8 + 2 * t;  // o[0]/o[2] at column c, o[1]/o[3] at c + 1
+    float* o0 = o_bh + r0 * p.o_sl + col0;
+    float* o1 = o_bh + r1 * p.o_sl + col0;
     if (r0 < L) {
-      if (c < D) o_bh[r0 * p.o_sl + c] = o[0] / safe_l0;
-      if (c + 1 < D) o_bh[r0 * p.o_sl + c + 1] = o[1] / safe_l0;
+      if (c < Dv) o0[c] = o[0] / safe_l0;
+      if (c + 1 < Dv) o0[c + 1] = o[1] / safe_l0;
     }
     if (r1 < L) {
-      if (c < D) o_bh[r1 * p.o_sl + c] = o[2] / safe_l1;
-      if (c + 1 < D) o_bh[r1 * p.o_sl + c + 1] = o[3] / safe_l1;
+      if (c < Dv) o1[c] = o[2] / safe_l1;
+      if (c + 1 < Dv) o1[c + 1] = o[3] / safe_l1;
     }
   }
 }
 
-template <int DP, int PAIRS>
+template <int DP, int PAIRS, bool kChunked>
 cudaError_t launch(const Params& p, dim3 grid, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<DP, PAIRS>();
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_tile_kernel<DP, PAIRS>,
+        flash_tile_kernel<DP, PAIRS, kChunked>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  flash_tile_kernel<DP, PAIRS>
+  flash_tile_kernel<DP, PAIRS, kChunked>
       <<<grid, 32 * kRowWarps * PAIRS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, bool kChunked = false>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   static int sms = 0;
   if (sms == 0) {
@@ -430,14 +478,15 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
                                    device);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((p.L + kBlockM - 1) / kBlockM, B * p.H);
+  const dim3 grid((p.L + kBlockM - 1) / kBlockM, B * p.H,
+                  kChunked ? (p.D + DP - 1) / DP : 1);
   // A second pair of warps where the SMs would get fewer than two blocks
   // each and there is a second tile of keys for it.
   if constexpr (DP <= 64) {
     if ((int64_t)grid.x * grid.y < 2 * sms && p.S > kTileN)
-      return launch<DP, 2>(p, grid, stream);
+      return launch<DP, 2, false>(p, grid, stream);
   }
-  return launch<DP, 1>(p, grid, stream);
+  return launch<DP, 1, kChunked>(p, grid, stream);
 }
 
 bool aligned16(const void* ptr) {
@@ -454,8 +503,8 @@ extern "C" int flash_attention_tile_fwd(
     int64_t q_sl, int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
     int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_sl,
     void* stream) {
-  if (B <= 0 || H <= 0 || L <= 0 || S < 0 || D <= 0 || D > 128 ||
-      (int64_t)B * H > 65535)
+  if (B <= 0 || H <= 0 || L <= 0 || S < 0 || D <= 0 ||
+      (int64_t)B * H > 65535 || (D + 127) / 128 > 65535)
     return (int)cudaErrorInvalidValue;
   const bool vec = D % 4 == 0 && aligned16(k) && aligned16(v) &&
                    (k_sb | k_sh | k_ss | v_sb | v_sh | v_ss) % 4 == 0;
@@ -470,7 +519,9 @@ extern "C" int flash_attention_tile_fwd(
     err = launch<32>(p, B, st);
   else if (D <= 64)
     err = launch<64>(p, B, st);
-  else
+  else if (D <= 128)
     err = launch<128>(p, B, st);
+  else
+    err = launch<128, true>(p, B, st);
   return (int)err;
 }

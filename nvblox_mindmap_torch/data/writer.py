@@ -9,6 +9,8 @@ The port's own counterpart of ``nvblox_mindmap_tpu/data/writer.py``
     <demo_dir>/<idx>.<cam>_depth.png        uint16 millimeters
     <demo_dir>/<idx>.<cam>_pose.npy         (7,) pos + wxyz quat, float32
     <demo_dir>/<idx>.<cam>_intrinsics.npy   (3, 3) float32
+    <demo_dir>/<idx>.<cam>_semantic.png     uint8 (or uint16) label ids
+    <demo_dir>/semantic_labels.json         {label id: class name}
     <demo_dir>/<idx>.robot_state.npy        float32 robot state
     <demo_dir>/<idx>.nvblox_vertex_features.zst
         zstd pickle of {"vertices": f16 (N, 3), "features": f16 (N, C),
@@ -18,6 +20,7 @@ The port's own counterpart of ``nvblox_mindmap_tpu/data/writer.py``
 """
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -51,6 +54,21 @@ class DemoWriter:
                             intrinsics: np.ndarray):
         np.save(self._path(idx, f"{camera}_pose.npy"), np.asarray(pose7, np.float32))
         np.save(self._path(idx, f"{camera}_intrinsics.npy"), np.asarray(intrinsics, np.float32))
+
+    def write_semantic(self, idx: int, camera: str, segmentation: np.ndarray):
+        """segmentation: (H, W) integer label ids -> a uint8 PNG, or uint16
+        where an id exceeds 255."""
+        seg = np.asarray(segmentation)
+        if seg.ndim != 2:
+            raise ValueError(f"segmentation must be a (H, W) label image, got {seg.shape}")
+        dtype = np.uint8 if seg.max(initial=0) < 256 else np.uint16
+        encode_png(self._path(idx, f"{camera}_semantic.png"), seg.astype(dtype),
+                   self.png_compress_level)
+
+    def write_semantic_labels(self, id_to_class):
+        """The label-id -> class-name map that the dynamic mask needs."""
+        with open(os.path.join(self.demo_dir, "semantic_labels.json"), "w") as f:
+            json.dump({str(int(k)): str(v) for k, v in id_to_class.items()}, f)
 
     def write_camera_frame(self, idx: int, camera: str, rgb, depth_m, pose7, intrinsics):
         """All four per-camera items of one frame."""

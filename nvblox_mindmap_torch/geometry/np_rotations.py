@@ -1,6 +1,7 @@
 """Host-side (numpy) rotation helpers (wxyz quaternions): the port's own copy
 of the parts of ``nvblox_mindmap_tpu/geometry/np_rotations.py`` that the
-data pipeline (augmentation, back-projection) and the mapper's poses use.
+data pipeline (augmentation, back-projection), the mapper's poses and the
+scene world's cameras use.
 The arithmetic is the same, so the transforms give the same bits."""
 from __future__ import annotations
 
@@ -67,6 +68,31 @@ def quat_to_matrix(q: np.ndarray) -> np.ndarray:
         axis=-1,
     )
     return o.reshape(q.shape[:-1] + (3, 3))
+
+
+def matrix_to_quat(m: np.ndarray) -> np.ndarray:
+    """(3, 3) rotation matrix -> wxyz quaternion (Shepperd's method).
+
+    Inverse of quat_to_matrix up to sign; output is standardized (w >= 0).
+    """
+    m = np.asarray(m, dtype=np.float64)
+    t = np.trace(m)
+    if t > 0:
+        s = np.sqrt(t + 1.0) * 2.0
+        q = np.array(
+            [0.25 * s, (m[2, 1] - m[1, 2]) / s, (m[0, 2] - m[2, 0]) / s,
+             (m[1, 0] - m[0, 1]) / s]
+        )
+    else:
+        i = int(np.argmax(np.diag(m)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = np.sqrt(max(m[i, i] - m[j, j] - m[k, k] + 1.0, 0.0)) * 2.0
+        q = np.empty(4)
+        q[0] = (m[k, j] - m[j, k]) / s
+        q[1 + i] = 0.25 * s
+        q[1 + j] = (m[j, i] + m[i, j]) / s
+        q[1 + k] = (m[k, i] + m[i, k]) / s
+    return quat_standardize(q / np.linalg.norm(q))
 
 
 def pose7_to_matrix(pose7: np.ndarray) -> np.ndarray:

@@ -13,18 +13,30 @@ Port of the live-mapping part of ``nvblox_mindmap_tpu/mapping/mapper.py``
 - ``nvblox_integrate``: routes a camera frame into the STATIC map (robot
   pixels masked out) and, with ``include_dynamic``, the DYNAMIC map;
 - ``get_vertices_and_features``: the valid surface vertices and features as
-  host arrays.
+  host arrays;
+- persistence: ``Mapper.save_map`` / ``load_from_file`` / ``from_file``
+  (the pickled {config, state arrays} payload of the JAX package's
+  ``save_map``) and ``save_feature_mesh_to_disk`` (the datagen item).
 
 Inputs may be numpy arrays or tensors; they move to the mapper's device.
+
+A map file is read through a restricted unpickler: it admits numpy arrays,
+builtin values and the ``MappingConfig`` class of either package (the JAX
+package's becomes the port's, which has the same fields), and nothing else,
+so a map file cannot run code. The port writes the same payload with its own
+``MappingConfig``; the state arrays round-trip bit for bit.
 """
 from __future__ import annotations
 
+import io
 import logging
+import pickle
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from nvblox_mindmap_torch.data.item_io import ArrayUnpickler, pickle_zst
 from nvblox_mindmap_torch.device import DeviceLike, resolve_device
 from nvblox_mindmap_torch.mapping import voxel_grid as vg
 from nvblox_mindmap_torch.mapping.constants import MapperId, MappingConfig
@@ -43,6 +55,30 @@ def _tensor(x, device: torch.device, dtype: Optional[torch.dtype] = None) -> tor
     return t if dtype is None else t.to(dtype)
 
 
+# The MappingConfig classes a map file may name, both read as the port's.
+_CONFIG_CLASSES = {("nvblox_mindmap_tpu.mapping.constants", "MappingConfig"),
+                   ("nvblox_mindmap_torch.mapping.constants", "MappingConfig")}
+
+
+class _MapUnpickler(ArrayUnpickler):
+    """numpy arrays, builtin values and ``MappingConfig``."""
+
+    def find_class(self, module: str, name: str):
+        if (module, name) in _CONFIG_CLASSES:
+            return MappingConfig
+        return super().find_class(module, name)
+
+
+def read_map_file(path: str) -> dict:
+    """A ``save_map`` payload: {"config": MappingConfig, "state": {field:
+    array}}, from a file that either package wrote."""
+    with open(path, "rb") as f:
+        payload = _MapUnpickler(io.BytesIO(f.read())).load()
+    if not isinstance(payload.get("config"), MappingConfig):
+        raise ValueError(f"{path}: no MappingConfig in the map file")
+    return payload
+
+
 class Mapper:
     """TSDF + deep-feature voxel mapper, one state per mapper id, on
     ``device`` (default ``cuda``; raises when CUDA is absent and no device
@@ -59,6 +95,16 @@ class Mapper:
     def dual(cls, config: MappingConfig, device: DeviceLike = None) -> "Mapper":
         """STATIC and DYNAMIC maps of one config; their tensors are separate."""
         return cls({MapperId.STATIC: config, MapperId.DYNAMIC: config}, device)
+
+    @classmethod
+    def from_file(cls, path: str, mapper_id: int = MapperId.STATIC,
+                  device: DeviceLike = None) -> "Mapper":
+        """A single-map mapper from a ``save_map`` file (upstream: nvblox
+        ``Mapper(...).load_from_file``); reads the payload once."""
+        payload = read_map_file(path)
+        mapper = cls({mapper_id: payload["config"]}, device)
+        mapper._apply_payload(payload, mapper_id)
+        return mapper
 
     # --- nvblox_torch method surface -----------------------------------------
     def add_depth_frame(self, depth, camera_pose, intrinsics, mask=None,
@@ -127,6 +173,22 @@ class Mapper:
         if mapper_id not in self._mesh_cache:
             self.update_feature_mesh(mapper_id)
         return self._mesh_cache[mapper_id]
+
+    # --- persistence ---------------------------------------------------------
+    def save_map(self, path: str, mapper_id: int = MapperId.STATIC):
+        """Pickle {config, state arrays} of one map, as the JAX package does."""
+        payload = {"config": self.configs[mapper_id],
+                   "state": vg.state_to_numpy(self.states[mapper_id])}
+        with open(path, "wb") as f:
+            pickle.dump(payload, f)
+
+    def load_from_file(self, path: str, mapper_id: int = MapperId.STATIC):
+        self._apply_payload(read_map_file(path), mapper_id)
+
+    def _apply_payload(self, payload, mapper_id: int):
+        self.configs[mapper_id] = payload["config"]
+        self.states[mapper_id] = vg.state_from_numpy(payload["state"], self.device)
+        self._mesh_cache.pop(mapper_id, None)
 
 
 def integrate_frame(
@@ -252,3 +314,33 @@ def get_vertices_and_features(
         nonzero = ~(features == 0).all(dim=1)
         vertices, features = vertices[nonzero], features[nonzero]
     return vertices.cpu().numpy(), features.cpu().numpy()
+
+
+def save_feature_mesh_to_disk(
+    mapper: Mapper,
+    path: str,
+    mapper_id: int = MapperId.STATIC,
+    remove_zero_features: bool = True,
+    num_excess_features: int = 0,
+    include_dynamic: bool = False,
+):
+    """Write the feature mesh as the datagen item: a zstd pickle of
+    {"vertices" f16 (N, 3), "features" f16 (N, F), "channel_length" F}.
+
+    ``remove_zero_features`` defaults True, as upstream's datagen export
+    does (``nvblox_to_disk_helpers.py:41-45``). ``include_dynamic`` appends
+    the DYNAMIC map's vertices after the static ones (upstream asserts this
+    unsupported; the JAX package and the port support it).
+    """
+    mapper.update_feature_mesh(mapper_id)
+    vertices, features = get_vertices_and_features(
+        mapper, mapper_id, remove_zero_features, num_excess_features)
+    if include_dynamic:
+        mapper.update_feature_mesh(MapperId.DYNAMIC)
+        dyn_v, dyn_f = get_vertices_and_features(
+            mapper, MapperId.DYNAMIC, remove_zero_features, num_excess_features)
+        vertices = np.concatenate([vertices, dyn_v], axis=0)
+        features = np.concatenate([features, dyn_f], axis=0)
+    pickle_zst({"vertices": vertices.astype(np.float16),
+                "features": features.astype(np.float16),
+                "channel_length": int(features.shape[1])}, path)

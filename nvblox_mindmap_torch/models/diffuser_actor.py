@@ -49,8 +49,6 @@ from nvblox_mindmap_torch.models.normalization import (
     normalize_trajectory,
     unnormalize_trajectory,
 )
-from nvblox_mindmap_torch.ops.attention import get_default_attention_impl
-from nvblox_mindmap_torch.ops.flash_attention import MAX_HEAD_DIM
 from nvblox_mindmap_torch.ops.schedulers import DiffusionSchedule, make_schedule
 
 LANGUAGE_SLICE = "the language slice (ParallelAttention)"
@@ -142,12 +140,6 @@ class DiffuserActor(nn.Module):
         super().__init__()
         device = resolve_device(device)
         cfg = config
-        head_dim = cfg.embedding_dim // cfg.num_attn_heads
-        if get_default_attention_impl() == "flash" and head_dim > MAX_HEAD_DIM:
-            raise ValueError(
-                f"attention_impl 'flash': the flash kernels take head dims up to "
-                f"{MAX_HEAD_DIM}, and embedding_dim {cfg.embedding_dim} / "
-                f"num_attn_heads {cfg.num_attn_heads} is {head_dim}")
         self.config = cfg
         self.encoder = Encoder(
             embedding_dim=cfg.embedding_dim,

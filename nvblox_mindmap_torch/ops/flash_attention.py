@@ -6,11 +6,13 @@ The kernels replace the JAX package's Pallas TPU kernel
 from ``flash_attention``): forward-only streaming-softmax attention over
 pre-scaled q (B, H, L, D) and k, v (B, H, S, D) with an optional (B, S)
 inclusion key mask (True = valid key). Rows with no valid key come out as
-exact zeros. Head dims go up to ``MAX_HEAD_DIM`` = 128; q, k and v may be
-fp32, fp16 or bf16: the function is computed in fp32 and returned in q's
-dtype, as the Pallas kernel's ``out_shape`` is (the wrapper casts 16-bit
-inputs to fp32 for the kernels, and the plain version does the same). Both
-kernels compute that same function:
+exact zeros. Any head dim D, in one launch: the kernels sum q.k over D in
+chunks of at most 128, and each block writes one chunk of at most 128 output
+columns (``gridDim.z = ceil(D / 128)``). q, k and v may be fp32, fp16 or
+bf16: the function is computed in fp32 and returned in q's dtype, as the
+Pallas kernel's ``out_shape`` is (the wrapper casts 16-bit inputs to fp32 for
+the kernels, and the plain version does the same). Both kernels compute that
+same function:
 
 - ``flash_attention_split`` (``csrc/flash_attention_split.cu``), for
   L <= ``SPLIT_MAX_L`` queries: one launch whose thread block cluster splits
@@ -46,7 +48,6 @@ from typing import Callable, Dict, Optional
 import torch
 
 NEG_INF = -1e9
-MAX_HEAD_DIM = 128
 DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 # The split kernel serves up to this many queries (PERF.md has the
 # measurement behind the choice).
@@ -151,10 +152,10 @@ def run_kernel(
     """Launch kernel ``name`` on CUDA tensors and return its output.
 
     Takes fp32, fp16 or bf16 q, k, v with a unit-stride last dim and any
-    other strides, a contiguous bool mask and head dims up to
-    ``MAX_HEAD_DIM`` (the split kernel: at most ``SPLIT_MAX_L`` queries), and
-    raises on anything else. 16-bit inputs are cast to fp32 for the kernel,
-    whose fp32 output is cast back to q's dtype.
+    other strides, a contiguous bool mask and any head dim (the split kernel:
+    at most ``SPLIT_MAX_L`` queries), and raises on anything else. 16-bit
+    inputs are cast to fp32 for the kernel, whose fp32 output is cast back to
+    q's dtype.
     """
     _check(q, k, v, key_padding_mask)
     if q.device.type != "cuda":
@@ -169,11 +170,6 @@ def run_kernel(
         )
     B, H, L, D = q.shape
     S = k.shape[2]
-    if D > MAX_HEAD_DIM:
-        raise ValueError(
-            f"the flash attention kernels take head dims up to {MAX_HEAD_DIM}, "
-            f"got {D}"
-        )
     if name == KERNELS[0] and L > SPLIT_MAX_L:
         raise ValueError(f"{name} takes up to {SPLIT_MAX_L} queries, got {L}")
     mask_ptr = None

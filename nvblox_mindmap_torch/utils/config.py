@@ -1,8 +1,10 @@
-"""Typed CLI / config system for the training app.
+"""Typed CLI / config system for the apps.
 
-The port's own copy of the training side of ``nvblox_mindmap_tpu/utils/config.py``
-(upstream ``mindmap/cli/args.py``): the dataclass argument classes
-(``ModelArgs``, ``SystemArgs``, ``DataGenArgs``, ``TrainingAppArgs``), the
+The port's own copy of ``nvblox_mindmap_tpu/utils/config.py`` (upstream
+``mindmap/cli/args.py``): the dataclass argument classes (``ModelArgs``,
+``SystemArgs``, ``DataGenArgs``, ``ClosedLoopArgs``, ``SimulationArgs`` and
+the apps' ``TrainingAppArgs``, ``DataGenAppArgs``, ``ClosedLoopAppArgs``,
+``ValidateDemosAppArgs``, each with the port's ``--device``), the
 argparse bridge (every field is a ``--flag``), JSON save / load, and the
 checkpoint overlay: when a checkpoint is given, the ``ModelArgs`` frozen in
 the sibling ``training_args.json`` override the command line, so a model is
@@ -125,6 +127,40 @@ class DataGenArgs:
 
 
 @dataclasses.dataclass
+class ClosedLoopArgs:
+    demos_closed_loop: str = "0"
+    num_retries: int = 1
+    demo_mode: str = "closed_loop_wait"
+    max_num_steps_to_goal: int = 40
+    terminate_after_n_steps: Optional[int] = None
+    max_intermediate_distance_m: Optional[float] = None
+    eval_file_path: Optional[str] = None
+    record_camera_output_path: Optional[str] = None
+    record_videos: bool = False
+    video_size: Tuple[int, int] = (320, 320)
+    gt_goals_subsampling_factor: int = 5
+    # K > 1 fuses K i.i.d. diffusion draws per goal into a consensus
+    # prediction (one batched device program; see
+    # closed_loop/policies.aggregate_trajectory_samples). Default 1 =
+    # reference parity (single stochastic DDPM draw).
+    prediction_samples: int = 1
+    # Reverse-diffusion sampler for live inference. Defaults reproduce the
+    # reference's closed-loop protocol (stochastic DDPM at the training
+    # timestep count); "--serving_scheduler ddim
+    # --serving_num_inference_steps 10" is the production serving mode the
+    # reference ships DDPM->DDIM conversion for
+    # (reference diffuser_actor/converter.py:51+), validated closed-loop in
+    # docs/data/task_success_mug_in_drawer_ddim.json.
+    serving_scheduler: str = "ddpm"
+    serving_num_inference_steps: Optional[int] = None
+    # Few-step timestep spacing: "leading" (diffusers default, what the
+    # reference's converted DDIM runs) or "trailing" (chain starts at t=T-1
+    # where the init really is pure noise; the better few-step config —
+    # ops/schedulers.DiffusionSchedule.timesteps docstring).
+    serving_timestep_spacing: str = "leading"
+
+
+@dataclasses.dataclass
 class SystemArgs:
     seed: int = 0
     ignore_model_args_json: bool = False
@@ -141,6 +177,18 @@ class SystemArgs:
     wandb_name: Optional[str] = None
     wandb_mode: str = "disabled"
     wandb_entity: Optional[str] = None
+
+
+@dataclasses.dataclass
+class SimulationArgs:
+    headless: bool = False
+    num_envs: int = 1
+    hdf5_file: Optional[str] = None
+    background_env_usd_path: Optional[str] = None
+    render_settings: str = "default"
+    sim_device: str = "cpu"
+    verbose: bool = False
+    disable_fabric: bool = False
 
 
 @dataclasses.dataclass
@@ -192,6 +240,41 @@ class TrainingAppArgs(ModelArgs, SystemArgs, DataGenArgs):
     def process_args(self):
         if self.add_external_cam and self.data_type == DataType.RGBD_AND_MESH:
             raise ValueError("RGBD_AND_MESH data type has only been tested with ego-cam")
+
+
+@dataclasses.dataclass
+class DataGenAppArgs(ModelArgs, SimulationArgs, SystemArgs, DataGenArgs):
+    output_dir: Optional[str] = None
+    add_depth_noise: bool = False
+    max_num_attempts: int = 5
+    max_num_steps: int = -1
+    # The port's device, as in TrainingAppArgs.
+    device: str = "cuda"
+
+    def process_args(self):
+        if self.add_external_cam and self.data_type == DataType.RGBD_AND_MESH:
+            raise ValueError("RGBD_AND_MESH data type has only been tested with ego-cam")
+
+
+@dataclasses.dataclass
+class ClosedLoopAppArgs(ModelArgs, SimulationArgs, SystemArgs, DataGenArgs,
+                        ClosedLoopArgs):
+    visualize_robot_state: bool = False
+    # The port's device, as in TrainingAppArgs.
+    device: str = "cuda"
+
+    def process_args(self):
+        assert self.prediction_horizon == 1 or self.demo_mode != "execute_gt_goals"
+
+
+@dataclasses.dataclass
+class ValidateDemosAppArgs(SimulationArgs, SystemArgs, ClosedLoopArgs):
+    # The port's device, as in TrainingAppArgs (validation itself is host
+    # numpy).
+    device: str = "cuda"
+
+    def process_args(self):
+        pass
 
 
 # -----------------------------------------------------------------------------

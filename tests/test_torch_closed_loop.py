@@ -258,11 +258,14 @@ def test_policy_checks_feature_dim_device_and_rgbd_skips_the_map():
 
 @pytest.mark.slow
 def test_port_policy_closed_loop_task_success(tmp_path):
-    """The port's policy through the JAX package's closed-loop runner on 4
+    """The port's policy through the port's own closed-loop runner, scene
+    world (rebuilt from the JAX-written scene.json) and evaluator on 4
     cube_stacking scenes with the committed fixture: the bar of
     ``tests/test_task_success.py::test_trained_policy_closed_loop_task_success``
     (success in at least one scene, DDPM-100 as the reference protocol)."""
-    from nvblox_mindmap_tpu.closed_loop.runner import ClosedLoopConfig, run_closed_loop_policy
+    from nvblox_mindmap_torch.closed_loop.evaluators import make_evaluator_for_task
+    from nvblox_mindmap_torch.closed_loop.runner import ClosedLoopConfig, run_closed_loop_policy
+    from nvblox_mindmap_torch.closed_loop.scripted import env_from_scene_json
 
     task = "cube_stacking"
     exp._generator_for_task(task)(str(tmp_path / "ds"), 8, 21)
@@ -277,13 +280,12 @@ def test_port_policy_closed_loop_task_success(tmp_path):
             model, make_embodiment_for_task(task), port_mapping_config(task), bounds,
             num_vertices_to_sample=N_VERTICES, seed=SEED, device="cpu")
 
-    def make_env(demo_path):
-        return scripted.env_from_scene_json(demo_path)
-
     demos = [os.path.join(str(tmp_path / "ds"), f"demo_{i:05d}") for i in range(4)]
+    evaluator = make_evaluator_for_task(
+        task, task_params={"num_cubes": 2, "cube_side_length": 2 * exp.CUBE_HALF})
     summary = run_closed_loop_policy(
-        make_env, make_policy, registry.make_embodiment_for_task(registry.Tasks(task)),
-        exp._evaluator_for_task(task), demo_names=demos,
+        env_from_scene_json, make_policy, make_embodiment_for_task(task), evaluator,
+        demo_names=demos,
         config=ClosedLoopConfig(max_num_steps=220, max_num_steps_to_goal=30, num_retries=2))
     print(summary)
     assert summary["num_demos"] == 4

@@ -83,10 +83,15 @@ def _inputs(gen, B, H, L, S, D, masked):
         # Grids of 2+ blocks per SM: the tile kernel's one-pair blocks.
         (8, 12, 100, 300, 64, True),
         (8, 12, 70, 200, 32, True),
-        # Head dims up to 128, as the Pallas wrapper takes them.
+        # Head dims up to 128, and above: chunks of 128 over blockIdx.z.
         (1, 12, 65, 197, 128, True),
         (1, 12, 8, 1500, 128, True),
         (2, 3, 100, 130, 100, True),
+        (1, 8, 3, 3072, 144, False),
+        (1, 8, 1, 3072, 192, True),
+        (1, 8, 615, 615, 256, True),
+        (2, 3, 70, 130, 250, True),
+        (2, 3, 5, 700, 390, True),
         # The training app's one-camera flagship: 3072 context tokens, 1 + 614.
         (32, 8, 3, 3072, 15, False),
         (32, 8, 1, 3072, 15, True),
@@ -109,7 +114,7 @@ def test_kernel_matches_plain_version(gen, B, H, L, S, D, masked):
 
 
 @pytest.mark.parametrize("name", [SPLIT, TILE])
-@pytest.mark.parametrize("D", [9, 15, 32, 64, 128])
+@pytest.mark.parametrize("D", [9, 15, 32, 64, 128, 144, 192, 256])
 @pytest.mark.parametrize("L,S", [(1, 333), (8, 2048), (3, 64)])
 def test_each_kernel_at_every_head_dim(gen, name, D, L, S):
     q, k, v, mask = _inputs(gen, 2, 3, L, S, D, masked=True)
@@ -122,7 +127,7 @@ def test_each_kernel_at_every_head_dim(gen, name, D, L, S):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("L,S,D", [(3, 2048, 64), (410, 410, 64), (1, 600, 128),
-                                   (100, 300, 128)])
+                                   (100, 300, 128), (3, 600, 192), (100, 300, 256)])
 def test_16_bit_inputs(gen, dtype, L, S, D):
     """16-bit q, k, v: computed in fp32, returned in q's dtype; within one
     rounding of the plain version's (also fp32) result."""
@@ -165,7 +170,8 @@ def test_chunks_wholly_masked_at_4096_keys(gen, L):
 
 
 @pytest.mark.parametrize("L,S,D", [(1, 2048, 15), (6, 2048, 15), (410, 410, 15),
-                                   (20, 300, 64), (4, 256, 64)])
+                                   (20, 300, 64), (4, 256, 64), (3, 500, 192),
+                                   (40, 200, 256)])
 def test_transposed_views_in_and_out(gen, L, S, D):
     """(B, T, H, D) tensors passed as .transpose(1, 2) views: no copy, and
     the output comes back in the caller's (B, L, H, D) layout."""
@@ -188,9 +194,6 @@ def test_wrapper_raises_instead_of_falling_back(gen):
     z = torch.zeros(1, 1, 2, 8, device="cuda")
     with pytest.raises(TypeError):
         fa.flash_attention(z.double(), z.double(), z.double())
-    with pytest.raises(ValueError, match="head dims"):
-        w = torch.zeros(1, 1, 2, 129, device="cuda")
-        fa.flash_attention(w, w, w)
     with pytest.raises(ValueError, match="unit-stride"):
         t = torch.zeros(1, 2, 3, 16, device="cuda")[..., ::2]
         fa.flash_attention(t, t, t)

@@ -53,10 +53,13 @@ def _both(q, k, v, mask, block_q=32, block_k=64):
         (1, 8, 33, 33, 9, True),
         (1, 8, 6, 200, 15, False),
         (2, 8, 41, 41, 15, True),
-        # The widest head dims the kernels take (the Pallas wrapper pads D
-        # to a multiple of 128).
+        # Wide head dims: the Pallas wrapper pads D to a multiple of 128, the
+        # kernels take it in chunks of 128.
         (1, 2, 20, 70, 64, True),
         (1, 2, 3, 70, 128, True),
+        (1, 2, 3, 70, 144, True),
+        (1, 2, 40, 50, 192, False),
+        (1, 2, 33, 40, 256, True),
     ],
 )
 def test_plain_version_matches_jax_kernel(B, H, L, S, D, masked):

@@ -9,6 +9,10 @@
   the reference layout with the port's writer and trains on them through
   the port's training app (``--device cpu``), then resumes from its
   ``last.ckpt``.
+- A third, with the same modules blocked, records a cube_stacking demo in
+  the port's scene world and runs the datagen, validate-demos and
+  closed-loop apps on it (``--device cpu``; the closed loop in its
+  ground-truth and policy modes).
 - A scan of the port's sources and ``chip_smoke.py`` for such imports.
 - Entry points called without a device on a machine without CUDA raise
   rather than fall back to the CPU.
@@ -207,8 +211,54 @@ def test_training_app_runs_without_the_reference_readers():
     assert "LOADED []" in proc.stdout, proc.stdout
 
 
+LOOP_APPS = r"""
+import sys
+for name in ("jax", "flax", "optax", "zstandard", "imageio", "PIL", "wandb", "matplotlib"):
+    sys.modules[name] = None  # any import of it now raises ImportError
+import os
+import tempfile
+import numpy as np
+from nvblox_mindmap_torch.apps import run_closed_loop_policy, run_datagen, run_validate_demos
+from nvblox_mindmap_torch.closed_loop import scripted
+
+root = tempfile.mkdtemp()
+demo = os.path.join(root, "demo_00000")
+env = scripted.make_cube_stacking_env(0, image_size=32)
+n = scripted.record_scripted_demo(demo, env, scripted.scripted_stack_goals(env.initial_objects,
+                                                                          0.04))
+scripted.write_scene_json(demo, env)
+common = ["--task", "cube_stacking", "--dataset", root, "--device", "cpu",
+          "--image_size", "32,32", "--voxel_size_m", "0.04", "--feature_type", "rgb"]
+run_datagen.main(common + ["--demos_datagen", "0", "--max_num_steps", "4",
+                           "--save_serialized_nvblox_map_to_disk", "1"])
+assert os.path.exists(os.path.join(demo, "3.nvblox_vertex_features.zst"))
+assert run_validate_demos.main(common[:6] + ["--demos_closed_loop", "0"]) == {demo: True}
+summary = run_closed_loop_policy.main(common + ["--demo_mode", "execute_gt_goals"], "scene")
+assert summary["success_rate"] == 1.0, summary
+summary = run_closed_loop_policy.main(common + [
+    "--data_type", "mesh", "--embedding_dim", "24", "--diffusion_timesteps", "5",
+    "--fps_subsampling_factor", "4", "--num_vertices_to_sample", "32",
+    "--serving_scheduler", "ddim", "--serving_num_inference_steps", "2",
+    "--max_num_steps_to_goal", "2", "--terminate_after_n_steps", "5"], "scene")
+assert summary["num_demos"] == 1
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in {FORBIDDEN})
+print("LOADED", loaded)
+"""
+
+
+def test_loop_apps_run_without_the_reference_readers():
+    blocked = FORBIDDEN + ("zstandard", "imageio", "PIL", "wandb", "matplotlib")
+    code = LOOP_APPS.replace("{FORBIDDEN}", repr(set(blocked)))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
 def _port_sources():
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "compare_flash_kernels.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "nvblox_mindmap_torch")):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return paths
@@ -224,7 +274,12 @@ def test_sources_import_nothing_of_jax():
                    "data/transforms.py", "data/dataset.py", "data/batching.py",
                    "data/loader.py", "data/writer.py", "embodiments/base.py",
                    "embodiments/arm.py", "embodiments/humanoid.py", "embodiments/registry.py",
-                   "utils/config.py", "utils/logging_utils.py", "apps/run_training.py"):
+                   "utils/config.py", "utils/logging_utils.py", "apps/run_training.py",
+                   "apps/run_datagen.py", "apps/run_validate_demos.py",
+                   "apps/run_closed_loop_policy.py", "closed_loop/goals.py",
+                   "closed_loop/scene.py", "closed_loop/scripted.py",
+                   "closed_loop/evaluators.py", "closed_loop/runner.py",
+                   "image/conversions.py"):
         assert os.path.join(ROOT, "nvblox_mindmap_torch", module) in sources, module
     for path in sources:
         with open(path) as f:
@@ -281,6 +336,15 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
     assert DiffuserActor(cfg, device="cpu").device == torch.device("cpu")
     rgb = build_backbone("rgb", feature_image_size=(4, 4), device="cpu")
     assert rgb(torch.zeros(1, 16, 16, 3)).shape == (1, 4, 4, 3)
+    from nvblox_mindmap_torch.apps import (
+        run_closed_loop_policy,
+        run_datagen,
+        run_validate_demos,
+    )
+
+    for app in (run_closed_loop_policy, run_datagen, run_validate_demos):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            app.main(["--task", "cube_stacking", "--dataset", "/nonexistent"])
     policy = NvbloxDiffuserActorPolicy(model, ArmEmbodiment(), mapping, bounds, device="cpu")
     assert policy.mapper.states[MapperId.STATIC].tsdf.device == torch.device("cpu")
     assert make_feature_fn("rgb", (8, 8), device="cpu")(np.zeros((4, 4, 3))).shape == (8, 8, 3)

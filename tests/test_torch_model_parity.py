@@ -272,6 +272,31 @@ def test_flash_path_matches_jax_xla(monkeypatch):
     np.testing.assert_allclose(out[0].numpy(), np.asarray(ref[0]), atol=TRAJ_ATOL, rtol=0)
 
 
+def test_flash_model_at_head_dim_144_matches_jax_flash():
+    """Head dims above 128 (2 heads of 144): the port's flash model vs the
+    JAX model with its Pallas kernel in interpret mode, which pads D to 256."""
+    from nvblox_mindmap_tpu.ops import attention as jattention
+
+    jcfg, tcfg = configs(8, embedding_dim=288, num_attn_heads=2, diffusion_timesteps=3,
+                         fps_subsampling_factor=4)
+    rng = np.random.default_rng(1)
+    batch = make_batch(rng, 1, 1, 16, 8, BOUNDS, n_invalid=4)
+    jmodel = jda.DiffuserActor(jcfg)
+    jprep = jda.prepare_inputs({k: jnp.asarray(v) for k, v in batch.items()},
+                               jnp.asarray(BOUNDS), jcfg)
+    variables = jax.jit(jmodel.init)(jax.random.PRNGKey(2), jprep,
+                                     jnp.zeros((1, 1, 1, 9)), jnp.zeros((1,), jnp.int32))
+    params = jax.tree_util.tree_map(np.asarray, variables["params"])
+    before = jattention.get_default_attention_impl()
+    jattention.set_default_attention_impl("flash")
+    try:
+        assert apply_inference_settings(convert_to_flash_attention()) == {}
+        out, ref = run_both(jcfg, tcfg, params, batch, BOUNDS, seed=3)
+    finally:
+        jattention.set_default_attention_impl(before)
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(ref[0]), atol=TRAJ_ATOL, rtol=0)
+
+
 def test_bridge_is_strict(small):
     model = tda.DiffuserActor(small["tcfg"], device="cpu")
     params = small["params"]
