@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the torch port's keypose prediction, live mapping, closed-loop
-policy, training, and its training, datagen and closed-loop apps on one
-NVIDIA GPU.
+policy, training, its training, open-loop, datagen and closed-loop apps,
+and the task-success and spatial-memory experiments with the committed
+trained policies, on one NVIDIA GPU.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It
 
@@ -69,7 +70,14 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    and writes best.ckpt, last.ckpt and training_args.json; best.ckpt,
    rebuilt through the frozen args, predicts one keypose through both
    kernels. It times the loader per worker count and in its parts, the
-   app-fed step and its batch wait, and the card's idle share;
+   app-fed step and its batch wait, and the card's idle share. Then the
+   open-loop app (``apps/run_open_loop_policy.py``, phase
+   ``open_loop_app``) runs on that dataset with best.ckpt (its frozen args
+   sampling the keyposes only): the validation demo's keyposes, DDPM-100,
+   each sample 3 + 2*100 split and 8*100 tile calls, finite metrics, one
+   sample through the kernels against eager attention (atol 5e-3), its
+   idle share; then one sample with ``--ply_output_dir`` writes the
+   feature, attention and prediction clouds;
 10. records one cube_stacking demo with the port's scripted expert in the
    port's scene world at 512x512 (the table camera as 'wrist', with
    segmentation and a scene.json) and runs the datagen app
@@ -89,7 +97,27 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    then the ground-truth goals on the same demo must stack the cubes
    (success 1.0). It prints sim-step and goal times, the step's parts (the
    scene render apart) and the idle share;
-12. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}``
+12. side by side with 13, one worker process per task (each is
+   host-bound), runs the task-success experiment's ``closed_loop`` stage (phase
+   ``task_success``) for each of the four committed trained fixtures
+   (``tests/test_data/task_success/<task>/last.ckpt``: width 72, 8 heads,
+   512 sampled vertices) on 4 of the 8 scenes the port's generator
+   rebuilds from seed 21: cube_stacking at DDPM-100, mug_in_drawer at
+   DDIM-10, drill_in_box at DDIM-10 with trailing spacing, stick_in_bin at
+   DDPM-20. Each task must succeed in at least one scene (cube_stacking:
+   at least half a lifted cube per scene) and every goal must launch
+   3 + 2*T split and 8*T tile calls; it prints the success rate, goal and
+   episode times;
+13. generates and fuses three panning demos (seed 100, 64x64) and runs
+   ``eval_pick_keypose_error`` of the committed spatial-memory fixtures
+   (phase ``spatial_memory``): mesh under 0.06 m, rgbd over 0.08 m and
+   over twice the mesh error; each keypose's 3 seeds are one DDPM-100
+   call of 3 rows;
+14. holds against the plain version every flash shape that the open-loop
+   app, task-success and spatial-memory phases gave the kernels and no
+   earlier row held (``kernel_check`` rows ``path_shape``; phase
+   ``path_shapes`` lists them all);
+15. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}``
    as the last line.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -142,6 +170,10 @@ APP_SELF = 1 + APP_CONTEXT // FPS_FACTOR
 DENOISE_ATOL = 1e-4  # fp32 eps, kernel vs einsum/softmax summation order
 KERNEL_ATOL = 2e-5
 WIDE_HEAD_DIMS = (144, 192, 256)
+# The spatial-memory rgbd model: one 64x64 camera through 16x16 RGB tokens,
+# FPS factor 4.
+SM_RGBD_CONTEXT = 16 * 16
+SM_RGBD_SELF = 1 + SM_RGBD_CONTEXT // 4
 
 
 def phase(name, **fields):
@@ -290,10 +322,53 @@ def vit_bound(vit, images):
     return bound + (flops,)
 
 
+def kernel_row(what, B, H, L, S, D, masked, gen):
+    """One ``kernel_check`` row: the kernel that serves L queries against its
+    plain version on random inputs of this shape (a random key mask when
+    ``masked``; bf16 when ``what`` ends in ``_bf16``), then the kernel, the
+    plain version and SDPA timed beside the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from nvblox_mindmap_torch.ops import flash_attention as fa
+
+    dtype = torch.bfloat16 if what.endswith("_bf16") else torch.float32
+    q = (torch.randn(B, H, L, D, device="cuda", generator=gen) * D**-0.5).to(dtype)
+    k = torch.randn(B, H, S, D, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(B, H, S, D, device="cuda", generator=gen).to(dtype)
+    mask = None
+    if masked:
+        mask = torch.rand(B, S, device="cuda", generator=gen) > 0.2
+    kernel = fa.kernel_for(L)
+    out = fa.flash_attention(q, k, v, mask)
+    ref = fa.flash_attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    if out.dtype != dtype:
+        raise AssertionError(f"{what}: output {out.dtype}, expected {dtype}")
+    err = (out.float() - ref.float()).abs().max().item()
+    # 16-bit outputs: the fp32 results, each rounded once to the dtype.
+    atol = KERNEL_ATOL + torch.finfo(dtype).eps * ref.float().abs().max().item() * (
+        dtype != torch.float32)
+    if not err <= atol:
+        raise AssertionError(f"{what} B={B}: {kernel} vs plain {err} > {atol}")
+    sdpa_mask = None if mask is None else mask[:, None, None, :]
+    kernel_ms = gpu_time_ms(lambda: fa.flash_attention(q, k, v, mask))
+    plain_ms = gpu_time_ms(lambda: fa.flash_attention_reference(q, k, v, mask))
+    library_ms = gpu_time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=sdpa_mask, scale=1.0))
+    bound_ms, bound_by = attention_bound(B, H, L, S, D, masked, kernel,
+                                         elem_bytes=q.element_size())
+    row = dict(what=what, kernel=kernel, B=B, H=H, L=L, S=S, D=D, masked=masked,
+               dtype=str(dtype).split(".")[-1], max_abs_err=err, atol=atol,
+               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    phase("kernel_check", **row)
+    return row
+
+
 def check_kernels():
     """Phase 3: flash kernels vs plain version at every path shape."""
     import torch
-    import torch.nn.functional as F
 
     from nvblox_mindmap_torch.ops import flash_attention as fa
 
@@ -351,41 +426,29 @@ def check_kernels():
             ("fixture_self", B, HEADS, 129, 129, 9, True),
             ("fixture_self_humanoid", B, HEADS, 130, 130, 9, True),
         ]
+    # The committed fixtures' humanoid cross-attention (2 grippers: L = 6
+    # history queries, 2 denoiser queries over 512 vertices), one goal of
+    # the task_success phase; the arm fixtures' shapes at B = 3, the
+    # spatial_memory phase's three seeds per keypose; and the spatial-memory
+    # rgbd model (one 64x64 camera, 16x16 RGB tokens, 1 + 64 FPS tokens) at
+    # B = 1 and 3.
+    shapes += [
+        ("fixture_encoder_cross_humanoid", 1, HEADS, 6, 512, 9, False),
+        ("fixture_denoiser_cross_humanoid", 1, HEADS, 2, 512, 9, True),
+        ("fixture_encoder_cross", 3, HEADS, 3, 512, 9, False),
+        ("fixture_denoiser_cross", 3, HEADS, 1, 512, 9, True),
+        ("fixture_self", 3, HEADS, 129, 129, 9, True),
+    ]
+    for B in (1, 3):
+        shapes += [
+            ("rgbd_encoder_cross", B, HEADS, 3, SM_RGBD_CONTEXT, 9, False),
+            ("rgbd_denoiser_cross", B, HEADS, 1, SM_RGBD_CONTEXT, 9, True),
+            ("rgbd_self", B, HEADS, SM_RGBD_SELF, SM_RGBD_SELF, 9, True),
+        ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for what, B, H, L, S, D, masked in shapes:
-        dtype = torch.bfloat16 if what.endswith("_bf16") else torch.float32
-        q = (torch.randn(B, H, L, D, device="cuda", generator=gen) * D**-0.5).to(dtype)
-        k = torch.randn(B, H, S, D, device="cuda", generator=gen).to(dtype)
-        v = torch.randn(B, H, S, D, device="cuda", generator=gen).to(dtype)
-        mask = None
-        if masked:
-            mask = torch.rand(B, S, device="cuda", generator=gen) > 0.2
-        kernel = fa.kernel_for(L)
-        out = fa.flash_attention(q, k, v, mask)
-        ref = fa.flash_attention_reference(q, k, v, mask)
-        torch.cuda.synchronize()
-        if out.dtype != dtype:
-            raise AssertionError(f"{what}: output {out.dtype}, expected {dtype}")
-        err = (out.float() - ref.float()).abs().max().item()
-        # 16-bit outputs: the fp32 results, each rounded once to the dtype.
-        atol = KERNEL_ATOL + torch.finfo(dtype).eps * ref.float().abs().max().item() * (
-            dtype != torch.float32)
-        if not err <= atol:
-            raise AssertionError(f"{what} B={B}: {kernel} vs plain {err} > {atol}")
-        sdpa_mask = None if mask is None else mask[:, None, None, :]
-        kernel_ms = gpu_time_ms(lambda: fa.flash_attention(q, k, v, mask))
-        plain_ms = gpu_time_ms(lambda: fa.flash_attention_reference(q, k, v, mask))
-        library_ms = gpu_time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=sdpa_mask, scale=1.0))
-        bound_ms, bound_by = attention_bound(B, H, L, S, D, masked, kernel,
-                                             elem_bytes=q.element_size())
-        row = dict(what=what, kernel=kernel, B=B, H=H, L=L, S=S, D=D, masked=masked,
-                   dtype=str(dtype).split(".")[-1], max_abs_err=err, atol=atol,
-                   kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
-        results[(what, B)] = row
-        phase("kernel_check", **row)
+        results[(what, B)] = kernel_row(what, B, H, L, S, D, masked, gen)
 
     def held(what, out, ref):
         torch.cuda.synchronize()
@@ -1696,6 +1759,8 @@ def run_train_app(resident_step_ms, keep_dir):
         torch.cuda.empty_cache()
         for name in ("best.ckpt", "training_args.json"):
             shutil.copy(os.path.join(ckpt_dir, name), keep_dir)
+        # The open-loop app on this dataset and checkpoint, before both go.
+        add_launches(launches, run_open_loop_app(data, ckpt_dir))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase("train_app", task=APP_TASK, data_type="rgbd_and_mesh", cameras=1, image=IMAGE,
@@ -2007,6 +2072,409 @@ def run_closed_loop_app(root, checkpoint, npz):
     return counts
 
 
+# --------------------------------------------------------------------------
+# The open-loop app and the paper's two experiments with trained weights
+# --------------------------------------------------------------------------
+
+OPEN_LOOP_DEMO = "2"  # train_app's validation demo
+OPEN_LOOP_STEPS = 100  # the app's sampler: DDPM at the training timestep count
+# (task, closed_loop sampler options, denoising steps per goal): the
+# protocols of tests/test_task_success.py:116-170.
+TASK_SUCCESS = (
+    ("cube_stacking", {}, 100),
+    ("mug_in_drawer", dict(num_inference_steps=10, scheduler="ddim"), 10),
+    ("drill_in_box", dict(num_inference_steps=10, scheduler="ddim", timestep_spacing="trailing"),
+     10),
+    ("stick_in_bin", dict(num_inference_steps=20, scheduler="ddpm"), 20),
+)
+TASK_SUCCESS_SEED = 21  # the fixtures' training scenes
+TASK_SUCCESS_DEMOS = 8
+TASK_SUCCESS_SUBSET = [0, 1, 2, 3]
+SPATIAL_MEMORY_SEED = 100
+SPATIAL_MEMORY_DEMOS = 3
+SPATIAL_MEMORY_SEEDS = 3  # eval_seeds: the rows of one sampler call per keypose
+FIXTURES = os.path.join(ROOT, "tests", "test_data")
+# The flash shapes (B, H, L, S, D, masked) the new phases gave the kernels.
+PATH_SHAPES = set()
+
+
+def per_sample(T):
+    """Flash launches of one sample or goal of a T-step sampler."""
+    return {"flash_attention_split": 3 + 2 * T, "flash_attention_tile": 8 * T}
+
+
+def add_launches(total, counts):
+    for kernel, n in counts.items():
+        total[kernel] = total.get(kernel, 0) + n
+
+
+class recording_shapes:
+    """Within the block, every kernel launch's (B, H, L, S, D, masked) goes
+    into PATH_SHAPES (the kernels themselves run as before). On leaving, the
+    launches recorded must equal the launches the kernels counted, so a
+    recorder that the path went round fails the run."""
+
+    def __enter__(self):
+        from nvblox_mindmap_torch.ops import flash_attention as fa
+
+        self.fa, self.original = fa, fa.run_kernel
+        self.recorded, self.before = 0, sum(fa.KERNEL_LAUNCHES.values())
+
+        def recording(name, q, k, v, key_padding_mask=None):
+            B, H, L, D = q.shape
+            if L > 0:  # run_kernel launches nothing for no queries
+                PATH_SHAPES.add((B, H, L, k.shape[2], D, key_padding_mask is not None))
+                self.recorded += 1
+            return self.original(name, q, k, v, key_padding_mask)
+
+        fa.run_kernel = recording
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        self.fa.run_kernel = self.original
+        launched = sum(self.fa.KERNEL_LAUNCHES.values()) - self.before
+        if exc_type is None and (launched == 0 or self.recorded != launched):
+            raise AssertionError(f"recording_shapes: {self.recorded} of {launched} "
+                                 "kernel launches recorded")
+        return False
+
+
+def ply_vertex_count(path):
+    with open(path) as f:
+        header = []
+        for line in f:
+            header.append(line.strip())
+            if line.strip() == "end_header":
+                break
+        body = sum(1 for line in f if line.strip())
+    count = int(next(h for h in header if h.startswith("element vertex")).split()[-1])
+    if count != body:
+        raise AssertionError(f"{path}: header says {count} vertices, body has {body}")
+    return count
+
+
+def run_open_loop_app(data, ckpt_dir):
+    """Phase ``open_loop_app``: ``apps/run_open_loop_policy.py`` on
+    train_app's dataset with its best.ckpt: the app's flagship
+    (rgbd_and_mesh, the ego camera at IMAGE, 2048 of 4096 768-d vertices,
+    width 120, 8 heads), DDPM-100 over the validation demo's keyposes. Then
+    one sample with ``--ply_output_dir``. Returns each kernel's launches over
+    the app's run."""
+    import itertools
+    import json
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from nvblox_mindmap_torch.apps import run_open_loop_policy as app
+    from nvblox_mindmap_torch.mapping.constants import get_workspace_bounds
+    from nvblox_mindmap_torch.models.converter import (
+        apply_inference_settings,
+        convert_to_flash_attention,
+    )
+    from nvblox_mindmap_torch.models.diffuser_actor import prepare_inputs
+    from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
+
+    t_phase = time.perf_counter()
+    # For ModelArgs the checkpoint's frozen args win over the command line,
+    # and only_sample_keyposes is one of them: beside a link to best.ckpt,
+    # frozen args that sample the keyposes only.
+    frozen_dir = os.path.join(os.path.dirname(data), "open_loop_checkpoint")
+    os.makedirs(frozen_dir)
+    os.symlink(os.path.join(ckpt_dir, "best.ckpt"), os.path.join(frozen_dir, "best.ckpt"))
+    with open(os.path.join(ckpt_dir, "training_args.json")) as f:
+        frozen = json.load(f)
+    frozen["only_sample_keyposes"] = True
+    with open(os.path.join(frozen_dir, "training_args.json"), "w") as f:
+        json.dump(frozen, f)
+    argv = ["--dataset", data, "--task", APP_TASK, "--demos_open_loop", OPEN_LOOP_DEMO,
+            "--only_sample_keyposes", "1", "--checkpoint",
+            os.path.join(frozen_dir, "best.ckpt")]
+
+    samples = []
+    run_inference = app.run_inference
+
+    def timed(infer, model, batch, seed):
+        before = flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_inference(infer, model, batch, seed)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = flash_counts()
+        samples.append(dict(ms=ms, launches={k: after[k] - before[k] for k in after},
+                            infer=infer, model=model, batch=batch, seed=seed,
+                            trajectory=out["trajectory"]))
+        return out
+
+    reset_flash_counts()
+    with mock.patch.object(app, "run_inference", timed), recording_shapes():
+        means = app.main(argv)
+    counts = flash_counts()
+    n = len(samples)
+    expected = per_sample(OPEN_LOOP_STEPS)
+    if n < 2 or any(x["launches"] != expected for x in samples) or counts != {
+            k: n * v for k, v in expected.items()}:
+        raise AssertionError(f"open_loop_app: {counts} flash launches over {n} samples, "
+                             f"each {[x['launches'] for x in samples]}, expected {expected}")
+    values = [v for m in means.values() for v in (m if isinstance(m, list) else [m])]
+    if any(v is None or not np.isfinite(v) for v in values):
+        raise AssertionError(f"open_loop_app: metrics {means}")
+
+    # One sample through the kernels vs eager attention with the same noise,
+    # its token counts (the app's flagship), and its device idle share.
+    first = samples[0]
+    infer, model, batch, seed = first["infer"], first["model"], first["batch"], first["seed"]
+    with torch.no_grad():
+        fixed = model.encode_prepared(prepare_inputs(batch, get_workspace_bounds(APP_TASK), model.config,
+                                                     device="cuda"), impl="eager")
+    tokens = (fixed["context_feats"].shape[1], 1 + fixed["fps_feats"].shape[1])
+    if tokens != (APP_CONTEXT, APP_SELF):
+        raise AssertionError(f"open_loop_app: context and self-attention tokens {tokens}")
+    del fixed
+    set_default_attention_impl("eager")
+    traj_eager = infer(batch, seed)[0].cpu().numpy()
+    apply_inference_settings(convert_to_flash_attention())
+    err = float(np.abs(first["trajectory"] - traj_eager).max())
+    if not (err <= TRAJ_ATOL and np.isfinite(first["trajectory"]).all()):
+        raise AssertionError(f"open_loop_app: flash vs eager sample {err} > {TRAJ_ATOL}")
+    times = [x["ms"] for x in samples]
+    prof = profile(lambda: infer(batch, seed), statistics.median(times))
+    set_default_attention_impl("eager")
+
+    # --ply_output_dir on the first sample: eager attention, three clouds.
+    class FirstSample:
+        def __init__(self, loader):
+            self.loader, self.dataset = loader, loader.dataset
+
+        def __iter__(self):
+            return itertools.islice(iter(self.loader), 1)
+
+    make_loader = app.get_data_loader_by_data_type
+
+    def first_sample(*args, **kwargs):
+        loader, sampler = make_loader(*args, **kwargs)
+        return FirstSample(loader), sampler
+
+    ply = os.path.join(os.path.dirname(data), "open_loop_ply")
+    reset_flash_counts()
+    with mock.patch.object(app, "get_data_loader_by_data_type", first_sample):
+        ply_ms = host_ms(lambda: app.main(argv + ["--ply_output_dir", ply]))
+    ply_counts = flash_counts()
+    clouds = {name: ply_vertex_count(os.path.join(ply, name)) for name in sorted(os.listdir(ply))}
+    want = {"sample_0000_features.ply": VERTICES, "sample_0000_attention.ply": VERTICES,
+            "sample_0000_prediction.ply": 1}
+    if clouds != want or any(ply_counts.values()):
+        raise AssertionError(f"open_loop_app --ply_output_dir: clouds {clouds}, "
+                             f"flash launches {ply_counts}")
+    del samples, first, infer, model, batch
+    torch.cuda.empty_cache()
+    phase("open_loop_app", task=APP_TASK, model="rgbd_and_mesh", cameras=1, image=IMAGE,
+          context_tokens=tokens[0], self_attention_tokens=tokens[1], vertices=VERTICES,
+          feature_dim=FEATURE_DIM, sampler=f"ddpm{OPEN_LOOP_STEPS}", demos=OPEN_LOOP_DEMO,
+          samples=n, launches=counts, launches_per_sample=expected,
+          flash_vs_eager_max_abs_err=err, means=means, sample=summary_ms(times),
+          profile=prof, ply=dict(clouds=clouds, ms=ply_ms, flash_launches=ply_counts),
+          seconds=time.perf_counter() - t_phase)
+    return counts
+
+
+def init_worker(workers):
+    """A worker process of ``run_experiments``: the parent's matmul flags,
+    the machine's cores shared among the workers, and the worker's output
+    on stderr (stdout's phase lines are the parent's)."""
+    threads = str(max(1, (os.cpu_count() or 1) // workers))
+    for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ[var] = threads
+    os.dup2(sys.stderr.fileno(), sys.stdout.fileno())
+    import torch
+
+    torch.set_num_threads(int(threads))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def task_success_one(task, serving, T):
+    """One task of phase ``task_success``: the committed trained fixture of
+    the task (width 72, 8 heads, 512 sampled vertices) through the
+    task-success experiment's ``closed_loop`` stage on 4 of the 8 scenes
+    that the port's generator rebuilds (seed 21), with the sampler of the
+    task's slow test. The bar of those tests: success in at least one
+    scene, and at least half a lifted cube per scene on cube_stacking.
+    Returns the phase's row, the task's launches and the flash shapes."""
+    from unittest import mock
+
+    import torch
+
+    from nvblox_mindmap_torch.closed_loop import policies, runner
+    from nvblox_mindmap_torch.scripts import task_success_experiment as exp
+
+    t_task = time.perf_counter()
+    root = tempfile.mkdtemp(prefix=f"mindmap_task_success_{task}_")
+    try:
+        t0 = time.perf_counter()
+        exp._generator_for_task(task)(os.path.join(root, "ds"), TASK_SUCCESS_DEMOS,
+                                      TASK_SUCCESS_SEED)
+        gen_s = time.perf_counter() - t0
+        times = {"goal": [], "episode": []}
+
+        def timed(name, fn):
+            def wrapper(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+                return result
+            return wrapper
+
+        Policy = policies.NvbloxDiffuserActorPolicy
+        reset_flash_counts()
+        with mock.patch.object(Policy, "get_new_goal", timed("goal", Policy.get_new_goal)), \
+                mock.patch.object(runner, "run_one_episode",
+                                  timed("episode", runner.run_one_episode)), \
+                recording_shapes():
+            summary = exp.closed_loop(
+                root, TASK_SUCCESS_DEMOS, os.path.join(FIXTURES, "task_success", task,
+                                                       "last.ckpt"),
+                demos_subset=TASK_SUCCESS_SUBSET, task=task, device="cuda", **serving)
+        counts = flash_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    goals = len(times["goal"])
+    expected = {k: goals * v for k, v in per_sample(T).items()}
+    if counts != expected:
+        raise AssertionError(f"task_success {task}: {counts} flash launches over "
+                             f"{goals} goals, expected {expected}")
+    if summary["num_demos"] != len(TASK_SUCCESS_SUBSET) or not summary["success_rate"] > 0:
+        raise AssertionError(f"task_success {task}: {summary}")
+    if task == "cube_stacking" and not summary["mean_num_lifted_cubes"] >= 0.5:
+        raise AssertionError(f"task_success {task}: {summary}")
+    sampler = f"{serving.get('scheduler', 'ddpm')}{T}" + (
+        f"_{serving['timestep_spacing']}" if "timestep_spacing" in serving else "")
+    row = dict(task=task, fixture=f"tests/test_data/task_success/{task}/last.ckpt",
+               scenes=TASK_SUCCESS_SUBSET, seed=TASK_SUCCESS_SEED, sampler=sampler,
+               success_rate=summary["success_rate"],
+               num_successes=summary.get("num_successes"),
+               summary=summary, goals=goals, launches=counts,
+               launches_per_goal=per_sample(T), goal=summary_ms(times["goal"]),
+               episodes=len(times["episode"]),
+               episode=summary_ms(times["episode"]), generate_s=gen_s,
+               seconds=time.perf_counter() - t_task)
+    return row, counts, sorted(PATH_SHAPES)
+
+
+def spatial_memory_one():
+    """Phase ``spatial_memory``: three panning demos (seed 100, 64x64)
+    generated and fused by the port, then ``eval_pick_keypose_error`` of
+    the committed mesh and rgbd fixtures (width 72, DDPM-100, 3 seeds per
+    keypose as the rows of one sampler call). The bar of
+    tests/test_spatial_memory.py:188-192: mesh < 0.06 m, rgbd > 0.08 m and
+    rgbd > 2x mesh. Returns the phase's fields, the launches over the
+    evaluations and the flash shapes."""
+    from unittest import mock
+
+    import torch
+
+    from nvblox_mindmap_torch.scripts import spatial_memory_experiment as sm
+
+    t_phase = time.perf_counter()
+    launches = {}
+    results = {}
+    root = tempfile.mkdtemp(prefix="mindmap_spatial_memory_")
+    try:
+        ds = os.path.join(root, "demos")
+        t0 = time.perf_counter()
+        demos = sm.generate_panning_demos(ds, SPATIAL_MEMORY_DEMOS, seed=SPATIAL_MEMORY_SEED,
+                                          image_size=64)
+        sm.fuse_demos(demos, device="cuda")
+        gen_fuse_s = time.perf_counter() - t0
+        for data_type in ("mesh", "rgbd"):
+            calls = []
+            make = sm.make_infer_fn
+
+            def counting(model, bounds, make=make, calls=calls):
+                infer = make(model, bounds)
+
+                def wrapper(batch, seeds):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = infer(batch, seeds)
+                    torch.cuda.synchronize()
+                    calls.append((time.perf_counter() - t0) * 1e3)
+                    return out
+                return wrapper
+
+            reset_flash_counts()
+            with mock.patch.object(sm, "make_infer_fn", counting), recording_shapes():
+                res = sm.eval_pick_keypose_error(
+                    ds, demos, os.path.join(FIXTURES, "spatial_memory", f"{data_type}_last.ckpt"),
+                    data_type, embedding_dim=72, eval_seeds=SPATIAL_MEMORY_SEEDS, device="cuda")
+            counts = flash_counts()
+            expected = {k: len(calls) * v for k, v in per_sample(OPEN_LOOP_STEPS).items()}
+            if counts != expected:
+                raise AssertionError(f"spatial_memory {data_type}: {counts} flash launches over "
+                                     f"{len(calls)} keyposes, expected {expected}")
+            add_launches(launches, counts)
+            results[data_type] = dict(res, launches=counts, sample=summary_ms(calls))
+        floor = sm.mean_predictor_floor(demos)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    mesh, rgbd = (results[t]["pick_keypose_error_m"] for t in ("mesh", "rgbd"))
+    if not (mesh < 0.06 and rgbd > 0.08 and rgbd > 2.0 * mesh):
+        raise AssertionError(f"spatial_memory: mesh {mesh} m, rgbd {rgbd} m (floor {floor})")
+    fields = dict(demos=SPATIAL_MEMORY_DEMOS, seed=SPATIAL_MEMORY_SEED, image=64,
+                  eval_seeds=SPATIAL_MEMORY_SEEDS, sampler=f"ddpm{OPEN_LOOP_STEPS}",
+                  mesh_pick_error_m=mesh, rgbd_pick_error_m=rgbd, rgbd_over_mesh=rgbd / mesh,
+                  mean_predictor_floor_m=floor, results=results, generate_and_fuse_s=gen_fuse_s,
+                  seconds=time.perf_counter() - t_phase)
+    return fields, launches, sorted(PATH_SHAPES)
+
+
+def run_experiments():
+    """Phases ``task_success`` (one worker process per task) and
+    ``spatial_memory`` (a fifth), side by side in spawned workers. Each is
+    host-bound (the scene world's render, the samplers' dispatch: the card
+    idles ~0.9 of the time), so together they take about the time of the
+    longest; their host times are measured with the others running.
+    Returns each kernel's launches over all five."""
+    import concurrent.futures
+    import multiprocessing
+
+    workers = len(TASK_SUCCESS) + 1
+    launches = {}
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"),
+            initializer=init_worker, initargs=(workers,)) as pool:
+        tasks = [pool.submit(task_success_one, *task) for task in TASK_SUCCESS]
+        spatial = pool.submit(spatial_memory_one)
+        for future in tasks:
+            row, counts, shapes = future.result()
+            add_launches(launches, counts)
+            PATH_SHAPES.update(map(tuple, shapes))
+            phase("task_success", workers=workers, **row)
+        fields, counts, shapes = spatial.result()
+    add_launches(launches, counts)
+    PATH_SHAPES.update(map(tuple, shapes))
+    phase("spatial_memory", workers=workers, **fields)
+    return launches
+
+
+def check_path_shapes(checks):
+    """Every shape the new phases gave the kernels that no kernel_check row
+    has held yet: held against the plain version now (phase
+    ``kernel_check``, what = ``path_shape``)."""
+    import torch
+
+    held = {(r["B"], r["H"], r["L"], r["S"], r["D"], r["masked"]) for r in checks.values()
+            if "B" in r and r.get("dtype") == "float32"}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for shape in sorted(PATH_SHAPES - held):
+        checks[("path_shape", shape)] = kernel_row("path_shape", *shape, gen)
+    return sorted(PATH_SHAPES)
+
+
 def main() -> int:
     import torch
 
@@ -2063,6 +2531,9 @@ def main() -> int:
             launches[kernel] = launches.get(kernel, 0) + n
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    add_launches(launches, run_experiments())
+    phase("path_shapes", shapes=[dict(zip(("B", "H", "L", "S", "D", "masked"), shape))
+                                 for shape in check_path_shapes(checks)])
 
     # Each kernel at the flagship shape it serves most; beside it, its time
     # at the mesh path's shape, which the line reported before the flagship
@@ -2084,7 +2555,16 @@ def main() -> int:
                                  f"L=S={APP_SELF} D=15 masked"),
     }
     entries = []
+    # And at the trained fixtures' shape (width 72: D = 9), which the
+    # task_success and spatial_memory phases serve.
+    fixture_shapes = {
+        "flash_attention_split": (("fixture_denoiser_cross", 1), "fixture denoiser "
+                                  "cross-attention B=1 H=8 L=1 S=512 D=9 masked"),
+        "flash_attention_tile": (("fixture_self", 1), "fixture self-attention B=1 H=8 "
+                                 "L=S=129 D=9 masked"),
+    }
     for kernel, (key, shape, mesh_key, mesh_shape, app_key, app_shape) in main_shapes.items():
+        fixture_key, fixture_shape = fixture_shapes[kernel]
         row = checks[key]
         entries.append({
             "name": kernel,
@@ -2108,6 +2588,8 @@ def main() -> int:
             "closed_loop_app_ms": checks[(app_key[0], 1)]["kernel_ms"],
             "closed_loop_app_shape": app_shape.replace("training app eval", "closed-loop app")
                                               .replace(f"B={TRAIN_BATCH}", "B=1"),
+            "fixture_path_ms": checks[fixture_key]["kernel_ms"],
+            "fixture_path_shape": fixture_shape,
         })
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 The port's own copy of ``nvblox_mindmap_tpu/utils/config.py`` (upstream
 ``mindmap/cli/args.py``): the dataclass argument classes (``ModelArgs``,
 ``SystemArgs``, ``DataGenArgs``, ``ClosedLoopArgs``, ``SimulationArgs`` and
-the apps' ``TrainingAppArgs``, ``DataGenAppArgs``, ``ClosedLoopAppArgs``,
-``ValidateDemosAppArgs``, each with the port's ``--device``), the
+the apps' ``TrainingAppArgs``, ``DataGenAppArgs``, ``OpenLoopAppArgs``,
+``ClosedLoopAppArgs``, ``ValidateDemosAppArgs``, each with the port's
+``--device``), the
 argparse bridge (every field is a ``--flag``), JSON save / load, and the
 checkpoint overlay: when a checkpoint is given, the ``ModelArgs`` frozen in
 the sibling ``training_args.json`` override the command line, so a model is
@@ -254,6 +255,19 @@ class DataGenAppArgs(ModelArgs, SimulationArgs, SystemArgs, DataGenArgs):
     def process_args(self):
         if self.add_external_cam and self.data_type == DataType.RGBD_AND_MESH:
             raise ValueError("RGBD_AND_MESH data type has only been tested with ego-cam")
+
+
+@dataclasses.dataclass
+class OpenLoopAppArgs(ModelArgs, SystemArgs):
+    demos_open_loop: str = "0"
+    # Headless visualization: write per-sample PLY clouds here when set
+    # (feature-PCA colors + prediction attention colors).
+    ply_output_dir: Optional[str] = None
+    # The port's device, as in TrainingAppArgs.
+    device: str = "cuda"
+
+    def process_args(self):
+        pass
 
 
 @dataclasses.dataclass

@@ -13,6 +13,10 @@
   the port's scene world and runs the datagen, validate-demos and
   closed-loop apps on it (``--device cpu``; the closed loop in its
   ground-truth and policy modes).
+- A fourth, with the same modules blocked, runs a demo-set generator per
+  embodiment (cube_stacking, drill_in_box), the task-success experiment's
+  ``gen`` and ``openloop`` stages (``--device cpu``, at a small width), and
+  the open-loop app with and without ``--ply_output_dir``.
 - A scan of the port's sources and ``chip_smoke.py`` for such imports.
 - Entry points called without a device on a machine without CUDA raise
   rather than fall back to the CPU.
@@ -257,6 +261,72 @@ def test_loop_apps_run_without_the_reference_readers():
     assert "LOADED []" in proc.stdout, proc.stdout
 
 
+EXPERIMENTS = r"""
+import sys
+for name in ("jax", "flax", "optax", "zstandard", "imageio", "PIL", "wandb", "matplotlib"):
+    sys.modules[name] = None  # any import of it now raises ImportError
+import glob
+import os
+import tempfile
+import numpy as np
+import torch
+from nvblox_mindmap_torch.apps import run_open_loop_policy
+from nvblox_mindmap_torch.closed_loop import scripted
+from nvblox_mindmap_torch.models.diffuser_actor import DiffuserActorConfig
+from nvblox_mindmap_torch.scripts import spatial_memory_experiment  # noqa: F401
+from nvblox_mindmap_torch.scripts import task_success_experiment as exp
+from nvblox_mindmap_torch.training.trainer import Trainer, TrainerConfig
+
+# Thousands of tiny ops: one intra-op thread is fastest, and keeps parallel
+# test workers from oversubscribing cores.
+torch.set_num_threads(1)
+root = tempfile.mkdtemp()
+# A demo-set generator per embodiment.
+scripted.generate_cube_stacking_demos(os.path.join(root, "arm"), 1, seed=3, image_size=32)
+(humanoid,) = scripted.generate_drill_in_box_demos(os.path.join(root, "h"), 1, seed=3,
+                                                   image_size=32)
+assert np.load(os.path.join(humanoid, "0.robot_state.npy")).shape == (37,)
+# The experiment's gen and openloop stages, at a small width (the stages read
+# the module's model constants), from a checkpoint of that width.
+exp.EMB, exp.TIMESTEPS, exp.N_VERTICES = 24, 5, 64
+out = os.path.join(root, "exp")
+common = ["--out", out, "--num_demos", "1", "--device", "cpu"]
+exp.main(["gen"] + common)
+cfg = DiffuserActorConfig(embedding_dim=24, data_type="mesh", feature_type="rgb",
+                          vertex_feature_dim=3, diffusion_timesteps=5, fps_subsampling_factor=4)
+trainer = Trainer(cfg, TrainerConfig(checkpoint_dir=os.path.join(
+    out, "cube_stacking", "logs", "checkpoints", "run")),
+    exp.get_workspace_bounds("cube_stacking"), device="cpu")
+trainer.init_state()
+trainer._save_best_and_last(0, 1.0, None)
+exp.main(["openloop"] + common)
+# The open-loop app on the stage's dataset, then with its three clouds.
+argv = ["--dataset", os.path.join(out, "cube_stacking", "ds"), "--task", "cube_stacking",
+        "--demos_open_loop", "0", "--checkpoint", exp.latest_checkpoint(
+            os.path.join(out, "cube_stacking")), "--device", "cpu", "--data_type", "mesh",
+        "--feature_type", "rgb", "--embedding_dim", "24", "--diffusion_timesteps", "5",
+        "--num_vertices_to_sample", "64", "--only_sample_keyposes", "1"]
+assert np.isfinite(run_open_loop_policy.main(argv)["distance_m"])
+ply = os.path.join(root, "ply")
+run_open_loop_policy.main(argv + ["--ply_output_dir", ply])
+for kind in ("features", "attention", "prediction"):
+    assert glob.glob(os.path.join(ply, f"sample_0000_{kind}.ply")), kind
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in {FORBIDDEN})
+print("LOADED", loaded)
+"""
+
+
+def test_experiments_run_without_the_reference_readers():
+    blocked = FORBIDDEN + ("zstandard", "imageio", "PIL", "wandb", "matplotlib")
+    code = EXPERIMENTS.replace("{FORBIDDEN}", repr(set(blocked)))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
 def _port_sources():
     paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "compare_flash_kernels.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "nvblox_mindmap_torch")):
@@ -279,7 +349,10 @@ def test_sources_import_nothing_of_jax():
                    "apps/run_closed_loop_policy.py", "closed_loop/goals.py",
                    "closed_loop/scene.py", "closed_loop/scripted.py",
                    "closed_loop/evaluators.py", "closed_loop/runner.py",
-                   "image/conversions.py"):
+                   "image/conversions.py", "image/pca.py", "visualization/visualizer.py",
+                   "utils/system.py", "apps/run_open_loop_policy.py",
+                   "scripts/task_success_experiment.py",
+                   "scripts/spatial_memory_experiment.py"):
         assert os.path.join(ROOT, "nvblox_mindmap_torch", module) in sources, module
     for path in sources:
         with open(path) as f:
@@ -339,10 +412,11 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
     from nvblox_mindmap_torch.apps import (
         run_closed_loop_policy,
         run_datagen,
+        run_open_loop_policy,
         run_validate_demos,
     )
 
-    for app in (run_closed_loop_policy, run_datagen, run_validate_demos):
+    for app in (run_closed_loop_policy, run_datagen, run_validate_demos, run_open_loop_policy):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             app.main(["--task", "cube_stacking", "--dataset", "/nonexistent"])
     policy = NvbloxDiffuserActorPolicy(model, ArmEmbodiment(), mapping, bounds, device="cpu")
