@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the torch port's keypose prediction, live mapping, closed-loop
 policy, training, its training, open-loop, datagen and closed-loop apps,
-and the task-success and spatial-memory experiments with the committed
-trained policies, on one NVIDIA GPU.
+the task-success and spatial-memory experiments with the committed trained
+policies, training from a packed epoch and under torchrun, and batched
+serving, on one NVIDIA GPU.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It
 
@@ -77,28 +78,18 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    each sample 3 + 2*100 split and 8*100 tile calls, finite metrics, one
    sample through the kernels against eager attention (atol 5e-3), its
    idle share; then one sample with ``--ply_output_dir`` writes the
-   feature, attention and prediction clouds;
-10. records one cube_stacking demo with the port's scripted expert in the
-   port's scene world at 512x512 (the table camera as 'wrist', with
-   segmentation and a scene.json) and runs the datagen app
-   (``apps/run_datagen.py``, phase ``datagen_app``) on it: the task's
-   mapping config scaled for 512, 768-d features from the seeded random
-   RADIO ViT-B/16 .npz, 12 frames, the serialized map. Every frame's item
-   must read back with 768-d fp16 features and the map file must reload
-   equal to the live map, bit for bit. It prints the per-part times per
-   frame and the card's idle share;
-11. runs the closed-loop app (``apps/run_closed_loop_policy.py``, phase
-   ``closed_loop_app``) on that demo in the scene world with the training
-   app's best.ckpt: the app's flagship (``rgbd_and_mesh``, the ego camera at
-   512, 2048 sampled 768-d vertices, RADIO mapping features: 3072 context
-   tokens, 615 in self-attention), DDIM-10, 4 steps to a goal, 24 steps.
-   Every goal must launch 3 + 2*10 split and 8*10 tile calls, a goal through
-   the kernels must match eager attention and the eval file must be written;
-   then the ground-truth goals on the same demo must stack the cubes
-   (success 1.0). It prints sim-step and goal times, the step's parts (the
-   scene render apart) and the idle share;
-12. side by side with 13, one worker process per task (each is
-   host-bound), runs the task-success experiment's ``closed_loop`` stage (phase
+   feature, attention and prediction clouds. Then phase ``packed_train``:
+   ``scripts/pack_dataset`` packs 4 batches of that dataset (each equal to
+   the streaming loader's, bit for bit), they are staged on the card, a
+   step from a staged batch is held to the host-fed step, the app trains
+   20 steps from the packed epoch (no flash launch) and evaluates one
+   batch (3 + 2*10, 8*10); it prints the materialize and staging seconds,
+   the bytes per key, the packed-fed step against the device-only step
+   of the same model, the batch wait and idle shares, and an asynchronous
+   save of the trainer's state (its return and write times) restored bit
+   for bit. Then the torchrun run of phase ``ddp`` starts (12);
+10. side by side with 11 and with the torchrun run of 12, one worker
+   process per task (each is host-bound), runs the task-success experiment's ``closed_loop`` stage (phase
    ``task_success``) for each of the four committed trained fixtures
    (``tests/test_data/task_success/<task>/last.ckpt``: width 72, 8 heads,
    512 sampled vertices) on 4 of the 8 scenes the port's generator
@@ -108,16 +99,47 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    at least half a lifted cube per scene) and every goal must launch
    3 + 2*T split and 8*T tile calls; it prints the success rate, goal and
    episode times;
-13. generates and fuses three panning demos (seed 100, 64x64) and runs
+11. generates and fuses three panning demos (seed 100, 64x64) and runs
    ``eval_pick_keypose_error`` of the committed spatial-memory fixtures
    (phase ``spatial_memory``): mesh under 0.06 m, rgbd over 0.08 m and
    over twice the mesh error; each keypose's 3 seeds are one DDPM-100
    call of 3 rows;
-14. holds against the plain version every flash shape that the open-loop
+12. waits for the torchrun run (phase ``ddp``): the packed app run again
+   under ``python -m torch.distributed.run --nproc_per_node 1`` (NCCL, world
+   size 1) with ``--checkpoint_backend orbax``; its losses must equal the
+   in-process run's within 1e-5 relative, its ``last/`` must load at the
+   last step with the in-process run's parameters (DDP_PARAM_ATOL), and a
+   run resumed from it must continue from its iteration;
+13. records one cube_stacking demo with the port's scripted expert in the
+   port's scene world at 512x512 (the table camera as 'wrist', with
+   segmentation and a scene.json) and runs the datagen app
+   (``apps/run_datagen.py``, phase ``datagen_app``) on it: the task's
+   mapping config scaled for 512, 768-d features from the seeded random
+   RADIO ViT-B/16 .npz, 12 frames, the serialized map. Every frame's item
+   must read back with 768-d fp16 features and the map file must reload
+   equal to the live map, bit for bit. It prints the per-part times per
+   frame and the card's idle share;
+14. runs the closed-loop app (``apps/run_closed_loop_policy.py``, phase
+   ``closed_loop_app``) on that demo in the scene world with the training
+   app's best.ckpt: the app's flagship (``rgbd_and_mesh``, the ego camera at
+   512, 2048 sampled 768-d vertices, RADIO mapping features: 3072 context
+   tokens, 615 in self-attention), DDIM-10, 4 steps to a goal, 24 steps.
+   Every goal must launch 3 + 2*10 split and 8*10 tile calls, a goal through
+   the kernels must match eager attention and the eval file must be written;
+   then the ground-truth goals on the same demo must stack the cubes
+   (success 1.0). It prints sim-step and goal times, the step's parts (the
+   scene render apart) and the idle share;
+15. serves 8 flagship requests per call (phase ``serving``): the flagship
+   model (2 cameras, 4096 context and 820 self-attention tokens) through
+   ``parallel/serving.make_sharded_infer_fn``, DDIM-10: the p50 per call,
+   keyposes per second and the idle share; each call 3 + 2*10 split and
+   8*10 tile launches, flash vs eager within 5e-3, each row within 1e-4 of
+   the same request served alone, the parameters copied once;
+16. holds against the plain version every flash shape that the open-loop
    app, task-success and spatial-memory phases gave the kernels and no
    earlier row held (``kernel_check`` rows ``path_shape``; phase
    ``path_shapes`` lists them all);
-15. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}``
+17. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}``
    as the last line.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -1599,9 +1621,9 @@ def loader_epochs(loader, epochs=APP_LOADER_EPOCHS):
 def run_train_app(resident_step_ms, keep_dir):
     """Phase 9: the training app (``apps/run_training.py``) on an on-disk
     dataset at the app's flagship width. Returns each kernel's launches over
-    the main path (the app runs and the prediction from best.ckpt); copies
-    best.ckpt and training_args.json into ``keep_dir`` for the closed-loop
-    app."""
+    the main path (the app runs and the prediction from best.ckpt) and the
+    started run of phase ``ddp`` (``finish_ddp``); copies best.ckpt and
+    training_args.json into ``keep_dir`` for the closed-loop app."""
     import dataclasses
     import tempfile
 
@@ -1624,145 +1646,147 @@ def run_train_app(resident_step_ms, keep_dir):
     from nvblox_mindmap_torch.utils import config, timers
 
     t_phase = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="mindmap_train_app_")
-    try:
-        data = os.path.join(root, "dataset")
-        dataset_bytes, write_s = write_app_dataset(data)
-        npz = os.path.join(root, "radio_v25_b.npz")
-        save_random_backbone(npz)
-        per_batch = {"flash_attention_split": 3 + 2 * EVAL_STEPS,
-                     "flash_attention_tile": 8 * EVAL_STEPS}
-        flags = ["--dataset", data, "--task", APP_TASK, "--data_type", "rgbd_and_mesh",
-                 "--feature_type", "radio_v25_b", "--feature_image_size",
-                 f"{PATCHES},{PATCHES}", "--embedding_dim", str(EMBEDDING),
-                 "--batch_size", str(TRAIN_BATCH), "--batch_size_val", str(TRAIN_BATCH),
-                 "--num_vertices_to_sample", str(VERTICES), "--demos_train", "0-1",
-                 "--demos_valset", "2", "--train_iters", str(APP_TRAIN_ITERS),
-                 "--val_freq", str(APP_TRAIN_ITERS), "--num_batches_per_test_eval", "1",
-                 "--skip_train_val", "1", "--backbone_weights", npz,
-                 "--print_progress_freq", "1", "--print_timers_freq", "1000000"]
-        runs, launches, result = {}, dict.fromkeys(per_batch, 0), None
-        for workers in APP_WORKERS:
-            timers.reset_timers()
-            reset_flash_counts()
-            result = app.main(flags + ["--num_workers", str(workers), "--base_log_dir",
-                                       os.path.join(root, f"logs_{workers}")])
-            torch.cuda.synchronize()
-            counts = flash_counts()
-            # APP_TRAIN_ITERS train steps launch nothing, the one eval batch
-            # launches 3 + 2*T split and 8*T tile calls.
-            if counts != per_batch:
-                raise AssertionError(f"train_app (num_workers={workers}): {counts} flash "
-                                     f"launches, expected {per_batch}")
-            for kernel, n in counts.items():
-                launches[kernel] += n
-            ckpt_dir = result["checkpoint_dir"]
-            written = sorted(os.listdir(ckpt_dir))
-            if not {"best.ckpt", "last.ckpt", "training_args.json"} <= set(written):
-                raise AssertionError(f"train_app: {ckpt_dir} holds {written}")
-            if not np.isfinite(result["best_loss"]):
-                raise AssertionError(f"train_app: validation loss {result['best_loss']}")
-            # Step 0 warms up; each later step is its batch's wait plus its step.
-            load = [t * 1e3 for t in timers.timer_samples("step/load_batch")[1:]]
-            train = [t * 1e3 for t in timers.timer_samples("step/train")[1:]]
-            fed = [a + b for a, b in zip(load, train)]
-            runs[workers] = dict(
-                num_workers=workers, steps=APP_TRAIN_ITERS, val_loss=result["best_loss"],
-                # The mean beside the p50: the pool refills at every epoch
-                # start, a stall that a p50 over few steps leaves out.
-                step_p50_ms=statistics.median(fed), step_mean_ms=statistics.mean(fed),
-                step_ms=fed,
-                load_batch_p50_ms=statistics.median(load),
-                train_p50_ms=statistics.median(train),
-                load_batch_share=sum(load) / sum(fed),
-                samples_per_s=TRAIN_BATCH / statistics.median(fed) * 1e3,
-                eval_batch_ms=1e3 * timers.timer_samples("step/eval/inference")[-1],
-                checkpoints=written)
-        trainer = result["trainer"]
-        model_cfg = trainer.model.config
-        if (model_cfg.data_type, model_cfg.vertex_feature_dim) != ("rgbd_and_mesh", FEATURE_DIM):
-            raise AssertionError(f"train_app: model config {model_cfg}")
-
-        # The loader on its own, per num_workers, and its parts on one thread.
-        args = config.parse_args(config.TrainingAppArgs, flags)
-        loaders = {}
-        for workers in APP_WORKERS:
-            loader = app.build_loaders(dataclasses.replace(args, num_workers=workers),
-                                       app.make_embodiment_for_task(APP_TASK))[0]
-            times = loader_epochs(loader)
-            loaders[workers] = dict(num_workers=workers, batches_per_epoch=len(loader),
-                                    epochs=len(times), batch_ms=times,
-                                    batch_p50_ms=statistics.median(times))
-        train_loader, _, val_loader = app.build_loaders(args,
-                                                        app.make_embodiment_for_task(APP_TASK))
-        parts = loader_parts(train_loader)
-
-        # Device busy time over 3 app-fed steps (num_workers = 4) against
-        # their host-clock time: the idle share.
-        trainer.config = dataclasses.replace(trainer.config, train_iters=APP_TRAIN_ITERS + 3,
-                                             save_checkpoint=False)
-        train_loader.num_workers = APP_WORKERS[-1]
-        torch.cuda.synchronize()
-        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            trainer.run_training(train_loader, val_loader, start_iter=APP_TRAIN_ITERS)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        busy_ms = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA)
-        del trainer, result
-
-        # A fresh process's path: the frozen args rebuild the model from
-        # best.ckpt, and it predicts one keypose (DDIM-10, B = 1).
-        best = os.path.join(ckpt_dir, "best.ckpt")
-        cli = config.parse_args(config.TrainingAppArgs,
-                                ["--checkpoint", best, "--task", APP_TASK, "--dataset", data,
-                                 "--embedding_dim", "24", "--data_type", "mesh"])
-        frozen = config.update_model_args_from_checkpoint(cli)
-        if frozen.embedding_dim != EMBEDDING:
-            raise AssertionError(f"train_app: the overlay gave width {frozen.embedding_dim}")
-        cfg = config.model_config_from_args(
-            frozen, vertex_feature_dim=app.vertex_feature_dim(val_loader.dataset))
-        bounds = get_workspace_bounds(APP_TASK)
-        predictor = Trainer(cfg, TrainerConfig(), bounds, device="cuda")
-        predictor.load_checkpoint(best)
-        batch = next(iter(val_loader))
-        one = {k: None if v is None else v[:1] for k, v in batch.items()}
-        prepared = prepare_inputs(one, bounds, cfg, device="cuda")
-        with torch.no_grad():
-            fixed = predictor.model.encode_prepared(prepared, impl="eager")
-        tokens = (fixed["context_feats"].shape[1], 1 + fixed["fps_feats"].shape[1])
-        if tokens != (APP_CONTEXT, APP_SELF):
-            raise AssertionError(f"train_app: context and self-attention tokens {tokens}")
-        gen = torch.Generator(device="cuda").manual_seed(5)
-        init = torch.randn((1, 1, 1, 9), generator=gen, device="cuda")
-        sampler = convert_diffusion_scheduler(EVAL_STEPS)
-        set_default_attention_impl("eager")
-        traj_eager, _, _ = sample_trajectory(predictor.model, prepared, bounds,
-                                             init_noise=init, **sampler)
-        apply_inference_settings(convert_to_flash_attention())
+    # Under keep_dir: the torchrun run of phase ddp reads the dataset and
+    # its packed epoch after this function returns.
+    root = tempfile.mkdtemp(prefix="mindmap_train_app_", dir=keep_dir)
+    data = os.path.join(root, "dataset")
+    dataset_bytes, write_s = write_app_dataset(data)
+    npz = os.path.join(root, "radio_v25_b.npz")
+    save_random_backbone(npz)
+    per_batch = {"flash_attention_split": 3 + 2 * EVAL_STEPS,
+                 "flash_attention_tile": 8 * EVAL_STEPS}
+    flags = ["--dataset", data, "--task", APP_TASK, "--data_type", "rgbd_and_mesh",
+             "--feature_type", "radio_v25_b", "--feature_image_size",
+             f"{PATCHES},{PATCHES}", "--embedding_dim", str(EMBEDDING),
+             "--batch_size", str(TRAIN_BATCH), "--batch_size_val", str(TRAIN_BATCH),
+             "--num_vertices_to_sample", str(VERTICES), "--demos_train", "0-1",
+             "--demos_valset", "2", "--train_iters", str(APP_TRAIN_ITERS),
+             "--val_freq", str(APP_TRAIN_ITERS), "--num_batches_per_test_eval", "1",
+             "--skip_train_val", "1", "--backbone_weights", npz,
+             "--print_progress_freq", "1", "--print_timers_freq", "1000000"]
+    runs, launches, result = {}, dict.fromkeys(per_batch, 0), None
+    for workers in APP_WORKERS:
+        timers.reset_timers()
         reset_flash_counts()
-        traj, _, _ = sample_trajectory(predictor.model, prepared, bounds, init_noise=init,
-                                       **sampler)
+        result = app.main(flags + ["--num_workers", str(workers), "--base_log_dir",
+                                   os.path.join(root, f"logs_{workers}")])
         torch.cuda.synchronize()
         counts = flash_counts()
-        set_default_attention_impl("eager")
+        # APP_TRAIN_ITERS train steps launch nothing, the one eval batch
+        # launches 3 + 2*T split and 8*T tile calls.
         if counts != per_batch:
-            raise AssertionError(f"train_app prediction: {counts} flash launches")
+            raise AssertionError(f"train_app (num_workers={workers}): {counts} flash "
+                                 f"launches, expected {per_batch}")
         for kernel, n in counts.items():
             launches[kernel] += n
-        err = (traj - traj_eager).abs().max().item()
-        if traj.shape != (1, 1, 1, 8) or not bool(torch.isfinite(traj).all()) or not (
-                err <= TRAJ_ATOL):
-            raise AssertionError(f"train_app prediction: {traj.shape}, flash vs eager {err}")
-        del predictor, fixed
-        torch.cuda.empty_cache()
-        for name in ("best.ckpt", "training_args.json"):
-            shutil.copy(os.path.join(ckpt_dir, name), keep_dir)
-        # The open-loop app on this dataset and checkpoint, before both go.
-        add_launches(launches, run_open_loop_app(data, ckpt_dir))
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+        ckpt_dir = result["checkpoint_dir"]
+        written = sorted(os.listdir(ckpt_dir))
+        if not {"best.ckpt", "last.ckpt", "training_args.json"} <= set(written):
+            raise AssertionError(f"train_app: {ckpt_dir} holds {written}")
+        if not np.isfinite(result["best_loss"]):
+            raise AssertionError(f"train_app: validation loss {result['best_loss']}")
+        # Step 0 warms up; each later step is its batch's wait plus its step.
+        load = [t * 1e3 for t in timers.timer_samples("step/load_batch")[1:]]
+        train = [t * 1e3 for t in timers.timer_samples("step/train")[1:]]
+        fed = [a + b for a, b in zip(load, train)]
+        runs[workers] = dict(
+            num_workers=workers, steps=APP_TRAIN_ITERS, val_loss=result["best_loss"],
+            # The mean beside the p50: the pool refills at every epoch
+            # start, a stall that a p50 over few steps leaves out.
+            step_p50_ms=statistics.median(fed), step_mean_ms=statistics.mean(fed),
+            step_ms=fed,
+            load_batch_p50_ms=statistics.median(load),
+            train_p50_ms=statistics.median(train),
+            load_batch_share=sum(load) / sum(fed),
+            samples_per_s=TRAIN_BATCH / statistics.median(fed) * 1e3,
+            eval_batch_ms=1e3 * timers.timer_samples("step/eval/inference")[-1],
+            checkpoints=written)
+    trainer = result["trainer"]
+    model_cfg = trainer.model.config
+    if (model_cfg.data_type, model_cfg.vertex_feature_dim) != ("rgbd_and_mesh", FEATURE_DIM):
+        raise AssertionError(f"train_app: model config {model_cfg}")
+
+    # The loader on its own, per num_workers, and its parts on one thread.
+    args = config.parse_args(config.TrainingAppArgs, flags)
+    loaders = {}
+    for workers in APP_WORKERS:
+        loader = app.build_loaders(dataclasses.replace(args, num_workers=workers),
+                                   app.make_embodiment_for_task(APP_TASK))[0]
+        times = loader_epochs(loader)
+        loaders[workers] = dict(num_workers=workers, batches_per_epoch=len(loader),
+                                epochs=len(times), batch_ms=times,
+                                batch_p50_ms=statistics.median(times))
+    train_loader, _, val_loader = app.build_loaders(args,
+                                                    app.make_embodiment_for_task(APP_TASK))
+    parts = loader_parts(train_loader)
+
+    # Device busy time over 3 app-fed steps (num_workers = 4) against
+    # their host-clock time: the idle share.
+    trainer.config = dataclasses.replace(trainer.config, train_iters=APP_TRAIN_ITERS + 3,
+                                         save_checkpoint=False)
+    train_loader.num_workers = APP_WORKERS[-1]
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run_training(train_loader, val_loader, start_iter=APP_TRAIN_ITERS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    del trainer, result
+
+    # A fresh process's path: the frozen args rebuild the model from
+    # best.ckpt, and it predicts one keypose (DDIM-10, B = 1).
+    best = os.path.join(ckpt_dir, "best.ckpt")
+    cli = config.parse_args(config.TrainingAppArgs,
+                            ["--checkpoint", best, "--task", APP_TASK, "--dataset", data,
+                             "--embedding_dim", "24", "--data_type", "mesh"])
+    frozen = config.update_model_args_from_checkpoint(cli)
+    if frozen.embedding_dim != EMBEDDING:
+        raise AssertionError(f"train_app: the overlay gave width {frozen.embedding_dim}")
+    cfg = config.model_config_from_args(
+        frozen, vertex_feature_dim=app.vertex_feature_dim(val_loader.dataset))
+    bounds = get_workspace_bounds(APP_TASK)
+    predictor = Trainer(cfg, TrainerConfig(), bounds, device="cuda")
+    predictor.load_checkpoint(best)
+    batch = next(iter(val_loader))
+    one = {k: None if v is None else v[:1] for k, v in batch.items()}
+    prepared = prepare_inputs(one, bounds, cfg, device="cuda")
+    with torch.no_grad():
+        fixed = predictor.model.encode_prepared(prepared, impl="eager")
+    tokens = (fixed["context_feats"].shape[1], 1 + fixed["fps_feats"].shape[1])
+    if tokens != (APP_CONTEXT, APP_SELF):
+        raise AssertionError(f"train_app: context and self-attention tokens {tokens}")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    init = torch.randn((1, 1, 1, 9), generator=gen, device="cuda")
+    sampler = convert_diffusion_scheduler(EVAL_STEPS)
+    set_default_attention_impl("eager")
+    traj_eager, _, _ = sample_trajectory(predictor.model, prepared, bounds,
+                                         init_noise=init, **sampler)
+    apply_inference_settings(convert_to_flash_attention())
+    reset_flash_counts()
+    traj, _, _ = sample_trajectory(predictor.model, prepared, bounds, init_noise=init,
+                                   **sampler)
+    torch.cuda.synchronize()
+    counts = flash_counts()
+    set_default_attention_impl("eager")
+    if counts != per_batch:
+        raise AssertionError(f"train_app prediction: {counts} flash launches")
+    for kernel, n in counts.items():
+        launches[kernel] += n
+    err = (traj - traj_eager).abs().max().item()
+    if traj.shape != (1, 1, 1, 8) or not bool(torch.isfinite(traj).all()) or not (
+            err <= TRAJ_ATOL):
+        raise AssertionError(f"train_app prediction: {traj.shape}, flash vs eager {err}")
+    del predictor, fixed
+    torch.cuda.empty_cache()
+    for name in ("best.ckpt", "training_args.json"):
+        shutil.copy(os.path.join(ckpt_dir, name), keep_dir)
+    # The open-loop app on this dataset and checkpoint; then training from a
+    # packed epoch of it, which starts the torchrun run.
+    add_launches(launches, run_open_loop_app(data, ckpt_dir))
+    packed_launches, ddp = run_packed_train(root, flags)
+    add_launches(launches, packed_launches)
     phase("train_app", task=APP_TASK, data_type="rgbd_and_mesh", cameras=1, image=IMAGE,
           batch=TRAIN_BATCH, vertices=VERTICES, stored_vertices=APP_STORED_VERTICES,
           feature_dim=FEATURE_DIM, context_tokens=APP_CONTEXT, self_attention_tokens=APP_SELF,
@@ -1778,7 +1802,403 @@ def run_train_app(resident_step_ms, keep_dir):
               frozen_args=dict(embedding_dim=frozen.embedding_dim,
                                data_type=config.DataType(frozen.data_type).value)),
           seconds=time.perf_counter() - t_phase)
-    return launches
+    return launches, ddp
+
+
+# --------------------------------------------------------------------------
+# Training fed from a packed epoch, data-parallel training, batched serving
+# --------------------------------------------------------------------------
+
+PACKED_BATCHES = 4  # bench.py's _bench_train_e2e packs a few batches too
+PACKED_STEPS = 20  # of the packed-fed app run; its last step evaluates once
+RESIDENT_STEPS = 8  # the same model on one staged batch: the device-only step
+DDP_TIMEOUT_S = 420
+# The torchrun run vs the in-process run, both on the card: the backward's
+# atomic scatter-adds may sum in another order (RESUME_ATOL), so the losses
+# are held relative, not bit for bit; and Adam steps a gradient that is zero
+# up to rounding (the attention k-projection biases, a few single weights)
+# by up to the app's learning rate (1e-4) whatever its sign: parameters
+# within two such steps, and at most DDP_APART_SHARE of them beyond
+# RESUME_ATOL.
+DDP_LOSS_RTOL = 1e-5
+DDP_PARAM_ATOL = 2e-4
+DDP_APART_SHARE = 1e-3
+SERVING_BATCH = 8
+SERVING_CALLS = 10
+LOSS_LINE = r"step (\d+)/\d+ \(epoch \d+\): total (-?[0-9.]+)"
+
+
+class loss_lines:
+    """Within the block, the train losses that the trainer logs (step ->
+    total), read from its progress lines as a torchrun run's are."""
+
+    def __enter__(self):
+        import logging
+        import re
+
+        class Handler(logging.Handler):
+            def emit(handler, record):
+                match = re.search(LOSS_LINE, record.getMessage())
+                if match:
+                    self.losses[int(match.group(1))] = float(match.group(2))
+
+        self.losses, self.handler = {}, Handler()
+        self.logger = logging.getLogger("nvblox_mindmap_torch.trainer")
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        return False
+
+
+def run_packed_train(root, flags):
+    """Phase ``packed_train``: ``scripts/pack_dataset`` materializes
+    ``PACKED_BATCHES`` batches of the training app's loader; each equals the
+    streaming loader's batch bit for bit; they are staged on the card; a
+    step from a staged batch is held to the host-fed step on the same batch;
+    the app trains ``PACKED_STEPS`` steps from the packed epoch (no flash
+    launch) and evaluates one batch (23 + 80); then the device-only step of
+    the same model and the idle share of packed-fed steps; an asynchronous
+    save of its state restores bit for bit. Then it starts the torchrun run
+    of phase ``ddp``. Returns each kernel's launches and that run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from nvblox_mindmap_torch.apps import run_training as app
+    from nvblox_mindmap_torch.data.packed import (
+        PackedDeviceLoader,
+        PackedEpoch,
+        device_batch,
+        stage_to_device,
+    )
+    from nvblox_mindmap_torch.scripts import pack_dataset
+    from nvblox_mindmap_torch.training.orbax_checkpoint import OrbaxCheckpointer
+    from nvblox_mindmap_torch.training.trainer import Trainer, TrainerConfig
+    from nvblox_mindmap_torch.utils import config, timers
+
+    t_phase = time.perf_counter()
+    per_batch = per_sample(EVAL_STEPS)
+    launches = dict.fromkeys(per_batch, 0)
+    packed = os.path.join(root, "packed")
+    pack_flags = flags + ["--num_workers", str(APP_WORKERS[-1])]
+    t0 = time.perf_counter()
+    meta = pack_dataset.main(pack_flags + ["--packed_out", packed, "--packed_num_batches",
+                                           str(PACKED_BATCHES)])
+    materialize_s = time.perf_counter() - t0
+    batch_bytes = {k: int(np.prod(v["batch_shape"])) * np.dtype(v["dtype"]).itemsize
+                   for k, v in meta["keys"].items()}
+
+    # Each packed batch is the streaming loader's (rgb back through /255).
+    args = config.parse_args(pack_dataset.PackDatasetArgs, pack_flags)
+    loader = app.build_loaders(args, app.make_embodiment_for_task(APP_TASK), skip_val=True)[0]
+    stream = list(pack_dataset.loader_batches(loader, PACKED_BATCHES))
+    epoch = PackedEpoch(packed)
+    for i, host in enumerate(stream):
+        got = epoch.batch(i)
+        for k, v in host.items():
+            same = got[k] is None if v is None else (
+                got[k].dtype == v.dtype and np.array_equal(got[k], v))
+            if not same:
+                raise AssertionError(f"packed_train: batch {i} key {k} differs from the loader")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged_loader = PackedDeviceLoader(epoch, seed=0)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+
+    # One step from a staged batch vs the host-fed step on the same batch
+    # (uint8 RGB divided by 255 on the card vs float RGB from the loader).
+    model_cfg = config.model_config_from_args(args, vertex_feature_dim=FEATURE_DIM)
+    bounds = app.get_workspace_bounds(APP_TASK)
+    staged0 = device_batch(stage_to_device(epoch, indices=[0]), 0)
+    trainer = Trainer(model_cfg, TrainerConfig(batch_size=TRAIN_BATCH), bounds, device="cuda",
+                      backbone_weights=args.backbone_weights)
+    first = []
+    for batch in (stream[0], staged0):
+        trainer.init_state()
+        first.append(float(trainer.train_one_step(batch, 0)["total"]))
+    first_err = abs(first[0] - first[1])
+    if first[0] != first[1]:  # the same inputs once on the card: bit for bit
+        raise AssertionError(f"packed_train: first step {first[1]} (staged) vs {first[0]}")
+    del trainer, staged0
+
+    # The app, fed from the packed epoch.
+    logs = os.path.join(root, "packed_logs")
+    run_flags = flags + ["--packed_dataset", packed, "--train_iters", str(PACKED_STEPS),
+                         "--val_freq", str(PACKED_STEPS)]
+    timers.reset_timers()
+    reset_flash_counts()
+    with loss_lines() as run_losses:
+        result = app.main(run_flags + ["--base_log_dir", logs])
+    torch.cuda.synchronize()
+    counts = flash_counts()
+    if counts != per_batch:
+        raise AssertionError(f"packed_train: {counts} flash launches, expected {per_batch}")
+    add_launches(launches, counts)
+    load = [t * 1e3 for t in timers.timer_samples("step/load_batch")[1:]]
+    train = [t * 1e3 for t in timers.timer_samples("step/train")[1:]]
+    fed = [a + b for a, b in zip(load, train)]
+    fed_p50, fed_q1, fed_q3 = quartiles(fed)
+    if sorted(run_losses.losses) != list(range(PACKED_STEPS)) or not all(
+            np.isfinite(list(run_losses.losses.values()))):
+        raise AssertionError(f"packed_train: logged losses {run_losses.losses}")
+    trainer = result["trainer"]
+
+    # The device-only step of the same model: one staged batch, resident.
+    resident_batch = next(iter(staged_loader))
+    resident = [host_ms(lambda: trainer.train_one_step(resident_batch, PACKED_STEPS + i))
+                for i in range(RESIDENT_STEPS)]
+    resident_p50 = statistics.median(resident[1:])
+
+    # Device busy time over 3 packed-fed steps against their host-clock time.
+    trainer.config = dataclasses.replace(trainer.config, train_iters=PACKED_STEPS + 3,
+                                         save_checkpoint=False, val_freq=10 ** 9)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run_training(staged_loader, None, start_iter=PACKED_STEPS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    del staged_loader
+
+    # The asynchronous backend at the flagship's size: save, wait, restore.
+    ckptr = OrbaxCheckpointer(os.path.join(root, "orbax"))
+    state, opt_state = trainer.model.state_dict(), trainer.optimizer.tensor_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckptr.save("last", state, opt_state, PACKED_STEPS, result["best_loss"])
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckptr.wait()
+    wait_s = time.perf_counter() - t0
+    restored = Trainer(model_cfg, trainer.config, bounds, device="cuda")
+    restored.init_state()
+    _, restored_opt, step, best = ckptr.restore("last", restored.model.state_dict(),
+                                                restored.optimizer.tensor_state())
+    restored.optimizer.load_tensor_state(restored_opt)
+    if (step, best, restored.optimizer.count) != (PACKED_STEPS, result["best_loss"],
+                                                  trainer.optimizer.count):
+        raise AssertionError(f"packed_train: restored iter {step}, best {best}, count "
+                             f"{restored.optimizer.count}")
+    for name, value in restored.model.state_dict().items():
+        if not torch.equal(value, state[name]):
+            raise AssertionError(f"packed_train: restored {name} differs")
+    for kind in ("exp_avg", "exp_avg_sq"):
+        for name, value in restored_opt[kind].items():
+            if not torch.equal(value, opt_state[kind][name]):
+                raise AssertionError(f"packed_train: restored {kind} of {name} differs")
+    ckpt_mb = sum(os.path.getsize(os.path.join(dirpath, f))
+                  for dirpath, _, files in os.walk(os.path.join(root, "orbax"))
+                  for f in files) / 1e6
+    del restored, trainer, result
+    torch.cuda.empty_cache()
+
+    phase("packed_train", task=APP_TASK, batch=TRAIN_BATCH, packed_batches=meta["num_batches"],
+          materialize_s=materialize_s, stage_s=stage_s,
+          batch_bytes=batch_bytes, batch_mb=sum(batch_bytes.values()) / 1e6,
+          staged_mb=sum(batch_bytes.values()) * meta["num_batches"] / 1e6,
+          rgb_dtype=meta["keys"]["rgbs"]["dtype"], batches_equal_loader=len(stream),
+          first_step_loss=dict(host_fed=first[0], staged=first[1], abs_diff=first_err,
+                               bit_equal=first[0] == first[1]),
+          steps=PACKED_STEPS, step_p50_ms=fed_p50, step_q1_ms=fed_q1, step_q3_ms=fed_q3,
+          step_mean_ms=statistics.mean(fed), load_batch_p50_ms=statistics.median(load),
+          train_p50_ms=statistics.median(train), load_batch_share=sum(load) / sum(fed),
+          samples_per_s=TRAIN_BATCH / fed_p50 * 1e3, resident_step_p50_ms=resident_p50,
+          resident_step_ms=resident, vs_device_only=resident_p50 / fed_p50,
+          idle=dict(steps=3, wall_ms=wall_ms, device_busy_ms=busy_ms,
+                    device_idle_share=1 - busy_ms / wall_ms),
+          launches=dict(per_train_step=0, per_eval_batch=per_batch, run=counts),
+          async_checkpoint=dict(mb=ckpt_mb, save_returns_s=save_s, wait_s=wait_s,
+                                restored_bit_equal=True),
+          seconds=time.perf_counter() - t_phase)
+    ddp = start_ddp(root, run_flags, run_losses.losses,
+                    os.path.join(logs, "checkpoints", "latest", "last.ckpt"))
+    return launches, ddp
+
+
+def start_ddp(root, run_flags, losses, last_ckpt):
+    """Start phase ``ddp``: the packed app run again under ``python -m
+    torch.distributed.run`` (one rank: NCCL for the gradient all-reduce,
+    gloo for the asynchronous checkpoint) with ``--checkpoint_backend
+    orbax``, in a subprocess of its own session, its output to a file.
+    ``finish_ddp`` waits for it and holds it to the in-process run
+    (``losses``, ``last_ckpt``)."""
+    logs = os.path.join(root, "ddp_logs")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", "-m", "nvblox_mindmap_torch.apps.run_training"] + run_flags + [
+           "--checkpoint_backend", "orbax", "--base_log_dir", logs]
+    log = os.path.join(root, "ddp.log")
+    with open(log, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                                stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+    return dict(proc=proc, t0=time.perf_counter(), root=root, logs=logs, log=log,
+                run_flags=run_flags, losses=losses, last_ckpt=last_ckpt)
+
+
+def stop_ddp(run):
+    """Kill the torchrun run's whole session (its agent and worker)."""
+    import signal
+
+    if run is not None and run["proc"].poll() is None:
+        os.killpg(run["proc"].pid, signal.SIGKILL)
+        run["proc"].wait()
+
+
+def finish_ddp(run):
+    """Phase ``ddp``, once the torchrun run has ended: its losses must equal
+    the in-process run's within DDP_LOSS_RTOL; its ``last/`` must load, at
+    the last step, within DDP_PARAM_ATOL of the in-process run's
+    ``last.ckpt``; a run resumed from it (in-process, without an
+    evaluation) must continue from its iteration. Returns each kernel's
+    launches (none: the resumed steps train)."""
+    import re
+
+    import torch
+
+    from nvblox_mindmap_torch.apps import run_training as app
+    from nvblox_mindmap_torch.training.checkpoint import load_checkpoint_file
+
+    t_phase = time.perf_counter()
+    root, logs, run_flags, losses = run["root"], run["logs"], run["run_flags"], run["losses"]
+    try:
+        code = run["proc"].wait(timeout=max(1.0, DDP_TIMEOUT_S - (t_phase - run["t0"])))
+    finally:
+        stop_ddp(run)
+    run_s = time.perf_counter() - run["t0"]
+    with open(run["log"]) as f:
+        output = f.read()
+    if code != 0:
+        raise AssertionError(f"ddp: torchrun exited {code}:\n{output[-4000:]}")
+    ddp_losses = {int(s): float(v) for s, v in re.findall(LOSS_LINE, output)}
+    if sorted(ddp_losses) != sorted(losses):
+        raise AssertionError(f"ddp: logged steps {sorted(ddp_losses)}")
+    loss_err = max(abs(ddp_losses[s] - losses[s]) / abs(losses[s]) for s in losses)
+    if not loss_err <= DDP_LOSS_RTOL:
+        raise AssertionError(f"ddp: losses {ddp_losses} vs {losses}")
+    ckpt_dir = os.path.realpath(os.path.join(logs, "checkpoints", "latest"))
+    written = sorted(os.listdir(ckpt_dir))
+    if not {"best", "last", "training_args.json"} <= set(written):
+        raise AssertionError(f"ddp: {ckpt_dir} holds {written}")
+
+    # Resume from last/ (in this process, one rank): it continues at its
+    # iteration, and trains only (no evaluation, no flash launch).
+    reset_flash_counts()
+    result = app.main(run_flags + ["--checkpoint_backend", "orbax", "--checkpoint",
+                                   os.path.join(ckpt_dir, "last"), "--train_iters",
+                                   str(PACKED_STEPS + 2), "--val_freq", str(10 ** 9),
+                                   "--base_log_dir", os.path.join(root, "resume_logs")])
+    torch.cuda.synchronize()
+    counts = flash_counts()
+    if any(counts.values()):
+        raise AssertionError(f"ddp resume: {counts} flash launches, expected none")
+    if (result["start_iter"], result["trainer"].optimizer.count) != (
+            PACKED_STEPS - 1, PACKED_STEPS + 3):
+        raise AssertionError(f"ddp resume: start {result['start_iter']}, updates "
+                             f"{result['trainer'].optimizer.count}")
+    from nvblox_mindmap_torch.training.trainer import Trainer
+
+    restored = Trainer(result["trainer"].model_config, result["trainer"].config,
+                       app.get_workspace_bounds(APP_TASK), device="cuda")
+    step, best = restored.load_checkpoint(os.path.join(ckpt_dir, "last"))
+    reference = load_checkpoint_file(run["last_ckpt"])
+    if step != reference["iter"] or not abs(best - reference["best_loss"]) <= (
+            DDP_LOSS_RTOL * abs(reference["best_loss"])):
+        raise AssertionError(f"ddp: last/ at {step}, best {best}; in-process {reference['iter']}, "
+                             f"{reference['best_loss']}")
+    diffs = {name: (value.cpu() - reference["state_dict"][name]).abs()
+             for name, value in restored.model.state_dict().items()}
+    param_err = max(float(d.max()) for d in diffs.values())
+    apart = sum(int((d > RESUME_ATOL).sum()) for d in diffs.values())
+    apart_share = apart / sum(d.numel() for d in diffs.values())
+    if not (param_err <= DDP_PARAM_ATOL and apart_share <= DDP_APART_SHARE):
+        raise AssertionError(f"ddp: last/ parameters up to {param_err} from the in-process "
+                             f"run's, {apart} elements beyond {RESUME_ATOL}")
+    del restored, result
+    torch.cuda.empty_cache()
+    phase("ddp", launcher="torch.distributed.run --standalone --nproc_per_node 1",
+          backend="cpu:gloo,cuda:nccl", world_size=1, steps=PACKED_STEPS, run_s=run_s,
+          side_by_side_with="task_success, spatial_memory",
+          losses_max_rel_diff=loss_err, losses_bit_equal=ddp_losses == losses,
+          checkpoint_backend="orbax", written=written, last_iter=step,
+          last_params_max_abs_diff=param_err, last_params_apart=apart,
+          last_params_apart_share=apart_share, best_loss=best,
+          resumed=dict(start_iter=PACKED_STEPS - 1, updates=PACKED_STEPS + 3, launches=counts),
+          seconds=time.perf_counter() - t_phase)
+    return counts
+
+
+def run_serving():
+    """Phase ``serving``: flagship prediction (2 cameras, 4096 context and 820
+    self-attention tokens, random weights) served at B = SERVING_BATCH,
+    DDIM-10, through ``parallel/serving.make_sharded_infer_fn`` on the card:
+    p50 and quartiles per call, keyposes per second, 23 + 80 launches per
+    call, the idle share; flash vs eager within TRAJ_ATOL, each row against
+    a B = 1 call with that row's noise within DENOISE_ATOL, the parameters
+    copied once over the calls. Returns each kernel's launches."""
+    import numpy as np
+    import torch
+
+    from nvblox_mindmap_torch.models.converter import (
+        apply_inference_settings,
+        convert_diffusion_scheduler,
+        convert_to_flash_attention,
+    )
+    from nvblox_mindmap_torch.models.diffuser_actor import DiffuserActor
+    from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
+    from nvblox_mindmap_torch.parallel.serving import make_sharded_infer_fn
+
+    t_phase = time.perf_counter()
+    torch.manual_seed(0)
+    model = DiffuserActor(model_config("rgbd_and_mesh"), device="cuda")
+    bounds = np.asarray(WORKSPACE, dtype=np.float32)
+    batch = make_batch(SERVING_BATCH, "rgbd_and_mesh", seed=8)
+    params = model.state_dict()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    init = torch.randn((SERVING_BATCH, 1, 1, 9), generator=gen, device="cuda")
+    apply_inference_settings(convert_to_flash_attention())
+    infer = make_sharded_infer_fn(model, bounds, **convert_diffusion_scheduler(EVAL_STEPS))
+    traj = infer(params, batch, init_noise=init)[0]  # warm-up and the parameter copy
+    reset_flash_counts()
+    times = [host_ms(lambda: infer(params, batch, init_noise=init))
+             for _ in range(SERVING_CALLS)]
+    counts = flash_counts()
+    expected = {k: n * SERVING_CALLS for k, n in per_sample(EVAL_STEPS).items()}
+    if counts != expected:
+        raise AssertionError(f"serving: {counts} flash launches, expected {expected}")
+    p50, q1, q3 = quartiles(times)
+    busy = profile(lambda: infer(params, batch, init_noise=init), p50)
+    if traj.shape != (SERVING_BATCH, 1, 1, 8) or not bool(torch.isfinite(traj).all()):
+        raise AssertionError(f"serving: trajectory {tuple(traj.shape)}")
+    rows_err = max((infer(params, {k: v[i:i + 1] for k, v in batch.items()},
+                          init_noise=init[i:i + 1])[0] - traj[i:i + 1]).abs().max().item()
+                   for i in range(SERVING_BATCH))
+    set_default_attention_impl("eager")
+    eager_err = (infer(params, batch, init_noise=init)[0] - traj).abs().max().item()
+    if not rows_err <= DENOISE_ATOL or not eager_err <= TRAJ_ATOL:
+        raise AssertionError(f"serving: rows vs B=1 {rows_err}, flash vs eager {eager_err}")
+    if infer.copies != 1:
+        raise AssertionError(f"serving: parameters copied {infer.copies} times")
+    del model, infer
+    torch.cuda.empty_cache()
+    phase("serving", model="rgbd_and_mesh", cameras=CAMERAS, image=IMAGE,
+          context_tokens=CONTEXT["rgbd_and_mesh"],
+          self_attention_tokens=1 + CONTEXT["rgbd_and_mesh"] // FPS_FACTOR,
+          batch=SERVING_BATCH, sampler=f"ddim{EVAL_STEPS}", devices=1, calls=SERVING_CALLS,
+          call_p50_ms=p50, call_q1_ms=q1, call_q3_ms=q3, call_ms=times,
+          keyposes_per_s=SERVING_BATCH * 1e3 / p50, launches=counts,
+          launches_per_call=per_sample(EVAL_STEPS), parameter_copies=1,
+          rows_vs_b1_max_abs_err=rows_err, flash_vs_eager_max_abs_err=eager_err,
+          device_busy_ms=busy["device_busy_ms"], device_idle_share=busy["device_idle_share"],
+          seconds=time.perf_counter() - t_phase)
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -2519,9 +2939,14 @@ def main() -> int:
     for kernel, n in train_launches.items():
         launches[kernel] = launches.get(kernel, 0) + n
     work = tempfile.mkdtemp(prefix="mindmap_loop_")
+    ddp = None
     try:
-        for kernel, n in run_train_app(resident_step_ms, work).items():
-            launches[kernel] = launches.get(kernel, 0) + n
+        app_launches, ddp = run_train_app(resident_step_ms, work)
+        add_launches(launches, app_launches)
+        # The task-success and spatial-memory workers are host-bound: the
+        # torchrun run of phase ddp runs beside them.
+        add_launches(launches, run_experiments())
+        add_launches(launches, finish_ddp(ddp))
         npz = os.path.join(work, "radio_v25_b.npz")
         save_random_backbone(npz)
         dataset = os.path.join(work, "dataset")
@@ -2530,8 +2955,9 @@ def main() -> int:
                                              npz).items():
             launches[kernel] = launches.get(kernel, 0) + n
     finally:
+        stop_ddp(ddp)
         shutil.rmtree(work, ignore_errors=True)
-    add_launches(launches, run_experiments())
+    add_launches(launches, run_serving())
     phase("path_shapes", shapes=[dict(zip(("B", "H", "L", "S", "D", "masked"), shape))
                                  for shape in check_path_shapes(checks)])
 

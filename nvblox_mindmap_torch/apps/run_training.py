@@ -1,4 +1,4 @@
-"""Training app: args -> loaders -> Trainer on one GPU.
+"""Training app: args -> loaders -> Trainer, on one GPU or data-parallel.
 
 The port's counterpart of ``nvblox_mindmap_tpu/apps/run_training.py``
 (upstream ``run_training.py``), with its flags and flow: keypose parameters
@@ -18,9 +18,19 @@ Usage::
         --demos_train 0-9 --demos_valset 10-11 --train_iters 1000
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
-card. Not ported yet, and raising ``NotImplementedError`` naming the slice
-that adds them: ``--packed_dataset``, ``--checkpoint_backend orbax`` and
-multi-GPU runs.
+card. The JAX app's other modes:
+
+- ``--packed_dataset <dir>`` trains from a packed epoch
+  (``scripts/pack_dataset``), staged on the device once; each step takes a
+  view of it. The four flags that shape batches at pack time are refused
+  here. Validation keeps the streaming loader.
+- ``--checkpoint_backend orbax`` writes ``best/`` and ``last/``
+  asynchronously (``training/orbax_checkpoint.py``); ``--checkpoint`` takes
+  such a directory.
+- Under ``python -m torch.distributed.run --nproc_per_node N -m
+  nvblox_mindmap_torch.apps.run_training ...`` it trains data-parallel,
+  one device per rank (gloo with ``--device cpu``); ``--batch_size`` is the
+  global batch and N must divide it.
 """
 from __future__ import annotations
 
@@ -51,7 +61,9 @@ from nvblox_mindmap_torch.ops.attention import (
     get_default_attention_impl,
     set_default_attention_impl,
 )
-from nvblox_mindmap_torch.training.trainer import MULTI_GPU_SLICE, Trainer, TrainerConfig
+from nvblox_mindmap_torch.parallel.mesh import maybe_init_distributed
+from nvblox_mindmap_torch.parallel.multihost import broadcast_object, get_rank
+from nvblox_mindmap_torch.training.trainer import Trainer, TrainerConfig
 from nvblox_mindmap_torch.utils.config import (
     TrainingAppArgs,
     args_to_dict,
@@ -62,15 +74,6 @@ from nvblox_mindmap_torch.utils.config import (
 from nvblox_mindmap_torch.utils.logging_utils import MetricLogger
 
 logger = logging.getLogger("nvblox_mindmap_torch.run_training")
-
-PACKED_SLICE = ("the packed-dataset slice (data/packed.py, the device-staged epoch; "
-                "ROADMAP.md queue 1)")
-
-
-def maybe_init_distributed() -> None:
-    """One process on one GPU; a multi-process launch raises."""
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or os.environ.get("JAX_COORDINATOR_ADDRESS"):
-        raise NotImplementedError(f"multi-GPU training is added by {MULTI_GPU_SLICE}")
 
 
 def resolve_keypose_params(args):
@@ -83,8 +86,12 @@ def resolve_keypose_params(args):
     return extra, mode
 
 
-def build_loaders(args, embodiment, num_shards: int = 1, shard_index: int = 0):
-    """(train loader, train sampler, validation loader)."""
+def build_loaders(args, embodiment, num_shards: int = 1, shard_index: int = 0,
+                  skip_train: bool = False, skip_val: bool = False):
+    """(train loader, train sampler, validation loader). ``skip_train``
+    leaves the train loader and sampler None (a packed epoch feeds
+    training, so the train demos are not scanned twice); ``skip_val`` the
+    validation loader (``scripts/pack_dataset`` never evaluates)."""
     extra, mode = resolve_keypose_params(args)
     weighting = SamplingWeightingType(args.sampling_weighting_type.lower())
     common = dict(
@@ -107,28 +114,31 @@ def build_loaders(args, embodiment, num_shards: int = 1, shard_index: int = 0):
         shard_index=shard_index,
         seed=args.seed,
     )
-    train_loader, train_sampler = get_data_loader_by_data_type(
-        demos=args.demos_train,
-        batch_size=args.batch_size,
-        sampling_weighting_type=weighting,
-        balance_demo_groups=args.balance_demo_groups,
-        apply_random_transforms=bool(args.apply_random_transforms),
-        apply_geometry_noise=bool(args.apply_geometry_noise),
-        pos_noise_stddev_m=args.pos_noise_stddev_m,
-        rot_noise_stddev_deg=args.rot_noise_stddev_deg,
-        random_translation_range_m=args.random_translation_range_m,
-        random_rpy_range_deg=args.random_rpy_range_deg,
-        **common,
-    )
-    val_loader, _ = get_data_loader_by_data_type(
-        demos=args.demos_valset or args.demos_train,
-        batch_size=args.batch_size_val,
-        sampling_weighting_type=SamplingWeightingType.UNIFORM,
-        # Keep the tail partial batch: a val set smaller than batch_size_val
-        # would otherwise evaluate nothing.
-        drop_last=False,
-        **common,
-    )
+    train_loader = train_sampler = val_loader = None
+    if not skip_train:
+        train_loader, train_sampler = get_data_loader_by_data_type(
+            demos=args.demos_train,
+            batch_size=args.batch_size,
+            sampling_weighting_type=weighting,
+            balance_demo_groups=args.balance_demo_groups,
+            apply_random_transforms=bool(args.apply_random_transforms),
+            apply_geometry_noise=bool(args.apply_geometry_noise),
+            pos_noise_stddev_m=args.pos_noise_stddev_m,
+            rot_noise_stddev_deg=args.rot_noise_stddev_deg,
+            random_translation_range_m=args.random_translation_range_m,
+            random_rpy_range_deg=args.random_rpy_range_deg,
+            **common,
+        )
+    if not skip_val:
+        val_loader, _ = get_data_loader_by_data_type(
+            demos=args.demos_valset or args.demos_train,
+            batch_size=args.batch_size_val,
+            sampling_weighting_type=SamplingWeightingType.UNIFORM,
+            # Keep the tail partial batch: a val set smaller than
+            # batch_size_val would otherwise evaluate nothing.
+            drop_last=False,
+            **common,
+        )
     return train_loader, train_sampler, val_loader
 
 
@@ -154,21 +164,39 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
 def _run(argv: Optional[List[str]]) -> Dict[str, Any]:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s - %(message)s")
-    maybe_init_distributed()
     cli_args = parse_args(TrainingAppArgs, argv)
+    # Before joining the process group, so a bad launch fails on every rank
+    # at once instead of waiting for its peers.
+    world_size = int(os.environ.get("WORLD_SIZE", "1"))
+    if cli_args.batch_size % world_size:
+        raise ValueError(f"--batch_size {cli_args.batch_size} does not split into the "
+                         f"{world_size} ranks of WORLD_SIZE")
+    device = resolve_device(None if cli_args.device == "cuda" else cli_args.device)
+    maybe_init_distributed(device)
     args = update_model_args_from_checkpoint(cli_args)
     if args.task is None:
         raise ValueError("--task is required")
     if args.dataset is None:
         raise ValueError("--dataset is required")
     if args.packed_dataset:
-        raise NotImplementedError(f"--packed_dataset is added by {PACKED_SLICE}")
-    device = resolve_device(None if args.device == "cuda" else args.device)
+        # Sampling and augmentation happen at pack time; on this invocation
+        # they cannot touch the frozen batches, so they are refused, not
+        # dropped without a word.
+        ignored = [name for name, active in (
+            ("apply_random_transforms", args.apply_random_transforms),
+            ("apply_geometry_noise", args.apply_geometry_noise),
+            ("balance_demo_groups", args.balance_demo_groups),
+            ("sampling_weighting_type", args.sampling_weighting_type != "uniform"),
+        ) if active]
+        if ignored:
+            raise ValueError(f"--packed_dataset replays frozen batches; {ignored} have "
+                             "no effect here — pass them to pack_dataset instead")
 
     embodiment = make_embodiment_for_task(args.task)
     bounds = get_workspace_bounds(args.task)
-    checkpoint_dir = os.path.join(
-        args.base_log_dir, "checkpoints", datetime.today().strftime("%Y.%m.%d-%H.%M.%S"))
+    # Rank 0's clock names the run's directory on every rank.
+    checkpoint_dir = broadcast_object(os.path.join(
+        args.base_log_dir, "checkpoints", datetime.today().strftime("%Y.%m.%d-%H.%M.%S")))
     trainer_config = TrainerConfig(
         train_iters=args.train_iters,
         batch_size=args.batch_size,
@@ -191,8 +219,6 @@ def _run(argv: Optional[List[str]]) -> Dict[str, Any]:
         seed=args.seed,
         remat_policy=args.remat_policy,
     )
-    if args.checkpoint_backend == "orbax":
-        raise NotImplementedError(f"--checkpoint_backend orbax is added by {MULTI_GPU_SLICE}")
     # A non-RGB extractor inside the model (rgbd data types) starts from
     # pretrained weights unless a (self-contained) checkpoint is resumed.
     if args.data_type in ("rgbd", "rgbd_and_mesh") and not args.checkpoint:
@@ -201,16 +227,26 @@ def _run(argv: Optional[List[str]]) -> Dict[str, Any]:
         require_backbone_weights(args.feature_type, args.backbone_weights,
                                  "training from scratch")
     os.makedirs(checkpoint_dir, exist_ok=True)
-    metric_logger = MetricLogger(
+    rank = get_rank()
+    metric_logger = None if rank else MetricLogger(
         use_wandb=args.wandb_mode != "disabled", wandb_project=args.exp_name,
         wandb_name=args.wandb_name, wandb_entity=args.wandb_entity,
         wandb_mode=args.wandb_mode, config=args_to_dict(args), artifact_dir=checkpoint_dir)
 
-    train_loader, _, val_loader = build_loaders(args, embodiment)
+    train_loader, _, val_loader = build_loaders(args, embodiment,
+                                                skip_train=bool(args.packed_dataset))
     model_config = model_config_from_args(
         args, vertex_feature_dim=vertex_feature_dim(val_loader.dataset))
     trainer = Trainer(model_config, trainer_config, bounds, device=device,
                       metric_logger=metric_logger, backbone_weights=args.backbone_weights)
+    if args.packed_dataset:
+        from nvblox_mindmap_torch.data.packed import PackedDeviceLoader
+
+        # The rank's rows of every packed batch, staged on its device once.
+        train_loader = PackedDeviceLoader(args.packed_dataset, mesh=trainer.mesh,
+                                          seed=args.seed)
+        logger.info("packed train feed: %d batches staged on %s from %s",
+                    len(train_loader), trainer.device, args.packed_dataset)
     if apply_inference_settings(convert_to_flash_attention()):
         raise AssertionError("convert_to_flash_attention returned sampler settings")
 
@@ -233,10 +269,13 @@ def _run(argv: Optional[List[str]]) -> Dict[str, Any]:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
-    # A stable handle for chained workflows: repoint checkpoints/latest only
-    # after a run that wrote last.ckpt, so a crashed run never leaves it
-    # dangling while an older best.ckpt exists.
-    if args.save_checkpoint and os.path.exists(os.path.join(checkpoint_dir, "last.ckpt")):
+    # A stable handle for chained workflows: rank 0 repoints
+    # checkpoints/latest only after a run that wrote its last checkpoint
+    # (last.ckpt, or last/ of the asynchronous backend), so a crashed run
+    # never leaves it dangling while an older best exists.
+    if rank == 0 and args.save_checkpoint and (
+            os.path.exists(os.path.join(checkpoint_dir, "last.ckpt"))
+            or os.path.isdir(os.path.join(checkpoint_dir, "last"))):
         latest = os.path.join(args.base_log_dir, "checkpoints", "latest")
         try:
             if os.path.islink(latest) or os.path.exists(latest):

@@ -166,6 +166,33 @@ class Optimizer:
         self._acc = (None if state["acc"] is None else
                      [a.to(p.device) for a, p in zip(state["acc"], self.params)])
 
+    def tensor_state(self) -> Dict[str, Any]:
+        """The state as live tensors and numbers, named by parameter, for a
+        checkpoint that loads in place (``training/orbax_checkpoint.py``):
+        each parameter's Adam step and moments (zeros before the first
+        update, as AdamW would make them), the accumulation buffers when
+        accumulating, and the update and micro-step counts. After loading
+        into them, ``load_tensor_state`` takes the counts back."""
+        state: Dict[str, Any] = {"step": {}, "exp_avg": {}, "exp_avg_sq": {},
+                                 "count": self.count, "mini_step": self.mini_step}
+        for name, p in zip(self.names, self.params):
+            adam = self.adamw.state[p]
+            if not adam:
+                adam.update(step=torch.tensor(0.0), exp_avg=torch.zeros_like(p),
+                            exp_avg_sq=torch.zeros_like(p))
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                state[key][name] = adam[key]
+        if self.accumulate_grad_batches > 1:
+            if self._acc is None:  # zeros, as an update leaves them
+                self._acc = [torch.zeros_like(p) for p in self.params]
+            state["acc"] = dict(zip(self.names, self._acc))
+        return state
+
+    def load_tensor_state(self, state: Dict[str, Any]) -> None:
+        """The counts of a ``tensor_state`` loaded in place."""
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+
     def load_optax_state(self, state: Any) -> None:
         """Take the state of the JAX package's optimizer chain (optax's
         ``adamw`` with a decay mask, the frozen-backbone ``masked``

@@ -1,8 +1,8 @@
-"""Single-device trainer (torch), for one GPU.
+"""Trainer (torch): one GPU per process, data-parallel across processes.
 
 Port of ``nvblox_mindmap_tpu/training/trainer.py``. The JAX trainer compiles
 the whole step into one program on a 1-D device mesh; here the step is eager
-PyTorch on one device:
+PyTorch on the process's device (``parallel/mesh.py``: its ``DataMesh``):
 
 - ``train_one_step``: ``prepare_inputs`` -> ``diffusion_train_loss`` ->
   backward -> ``Optimizer.step`` (AdamW, LinearLR, gradient accumulation).
@@ -16,14 +16,28 @@ PyTorch on one device:
   attention impl, so with flash installed every eval batch runs both flash
   kernels.
 - ``run_training``: the iteration loop with the epoch-seeded sampler
-  (``set_epoch`` from the block base every ``set_epoch_every`` epochs), the
-  next batch copied to the device while the current one trains, periodic
-  evaluation and best/last checkpoints.
+  (``set_epoch`` from the block base every ``set_epoch_every`` epochs; a
+  packed epoch's loader takes the epoch itself), the next batch copied to
+  the device while the current one trains (a batch already on the device,
+  a packed epoch's view, is not copied), periodic evaluation and best/last
+  checkpoints (``msgpack`` files, or the asynchronous ``orbax``
+  directories of ``training/orbax_checkpoint.py``).
 
 The noise and timesteps of step ``s`` come from a generator seeded by
 (``seed``, ``s``), so a resumed run draws what a continued run draws; the
 JAX package's ``jax.random`` streams are not reproduced. Dropout (0.0 by
 default) draws from torch's global generator.
+
+Under a process group (torchrun, ``parallel/mesh.maybe_init_distributed``)
+each rank trains on its rows of the global batch, as the JAX trainer's
+batch sharding does: the noise and timesteps are drawn for the global batch
+and each rank takes its rows; after ``backward`` one all-reduce averages the
+trainable gradients (never the frozen backbone's) and the losses over the
+ranks, as JAX's psum over the data axis (the loss is a plain mean, so equal
+shards give the global mean); a step of n ranks is then the step of one.
+Eval metrics are averaged over the ranks. Only rank 0 logs and writes
+msgpack checkpoints and ``training_args.json``; every rank enters the
+asynchronous backend's save.
 """
 from __future__ import annotations
 
@@ -34,8 +48,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from nvblox_mindmap_torch.device import DeviceLike, resolve_device
+from nvblox_mindmap_torch.device import DeviceLike
 from nvblox_mindmap_torch.models.diffuser_actor import (
     DiffuserActor,
     DiffuserActorConfig,
@@ -47,6 +62,14 @@ from nvblox_mindmap_torch.models.layers import set_layer_checkpointing
 from nvblox_mindmap_torch.models.loss import compute_loss, compute_metrics
 from nvblox_mindmap_torch.models.normalization import unnormalize_trajectory
 from nvblox_mindmap_torch.models.weights import load_flax_params
+from nvblox_mindmap_torch.parallel.mesh import (
+    local_rows,
+    make_data_mesh,
+    on_mesh_device,
+    replicate,
+    shard_batch,
+)
+from nvblox_mindmap_torch.parallel.multihost import mean_metrics_across_processes
 from nvblox_mindmap_torch.training.checkpoint import (
     is_jax_checkpoint,
     load_checkpoint_file,
@@ -60,7 +83,6 @@ from nvblox_mindmap_torch.utils.timers import Timer, timer_status_string
 
 logger = logging.getLogger("nvblox_mindmap_torch.trainer")
 
-MULTI_GPU_SLICE = "the multi-GPU slice (parallel/: DDP over NCCL, sharded checkpoints)"
 REMAT_POLICIES = ("none", "dots", "dots_no_batch", "nothing")
 
 
@@ -84,9 +106,9 @@ class TrainerConfig:
     eval_num_inference_steps: Optional[int] = 10
     eval_scheduler: str = "ddim"
     checkpoint_dir: str = "checkpoints"
-    # "msgpack": one file per checkpoint (the port writes it with
-    # torch.save). "orbax" (sharded, asynchronous) belongs to the multi-GPU
-    # slice and raises NotImplementedError.
+    # "msgpack": best.ckpt / last.ckpt files (the port writes them with
+    # torch.save, rank 0 only). "orbax": best/ and last/ directories written
+    # asynchronously by every rank (training/orbax_checkpoint.py).
     checkpoint_backend: str = "msgpack"
     seed: int = 0
     set_epoch_every: int = 5
@@ -143,10 +165,12 @@ def _seed(*parts: int) -> int:
 
 
 class Trainer:
-    """Trains a ``DiffuserActor`` on one device (default ``cuda``).
+    """Trains a ``DiffuserActor`` on the process's device (default ``cuda``),
+    one rank of a process group when there is one.
 
     ``init_state`` (or ``load_checkpoint``) builds ``self.model`` and
-    ``self.optimizer``; the other methods work on them.
+    ``self.optimizer``; the other methods work on them. ``batch_size`` is
+    the global batch: each of the world's ranks trains on an equal share.
     """
 
     def __init__(
@@ -158,16 +182,18 @@ class Trainer:
         metric_logger=None,
         backbone_weights: Optional[str] = None,
     ):
-        if trainer_config.checkpoint_backend == "orbax":
-            raise NotImplementedError(f"checkpoint_backend 'orbax' is added by {MULTI_GPU_SLICE}")
-        if trainer_config.checkpoint_backend != "msgpack":
+        if trainer_config.checkpoint_backend not in ("msgpack", "orbax"):
             raise ValueError(f"Unknown checkpoint_backend {trainer_config.checkpoint_backend!r}; "
                              "expected 'msgpack' or 'orbax'")
         if trainer_config.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {trainer_config.remat_policy!r}")
         self.model_config = model_config
         self.config = trainer_config
-        self.device = resolve_device(device)
+        self.mesh = make_data_mesh(device)
+        if trainer_config.batch_size % self.mesh.world_size:
+            raise ValueError(f"batch_size {trainer_config.batch_size} does not split into "
+                             f"{self.mesh.world_size} ranks")
+        self.device = self.mesh.device
         self.workspace_bounds = torch.as_tensor(np.asarray(workspace_bounds, np.float32),
                                                 device=self.device)
         self.metric_logger = metric_logger
@@ -175,6 +201,7 @@ class Trainer:
         self.model: Optional[DiffuserActor] = None
         self.optimizer: Optional[Optimizer] = None
         self._copy_stream = None
+        self._orbax = None
 
     # --- setup ---------------------------------------------------------------
     def init_state(self, flax_params: Optional[Dict[str, Any]] = None
@@ -195,7 +222,7 @@ class Trainer:
                                      self.backbone_weights)
         set_layer_checkpointing(model, self.config.remat_policy != "none")
         cfg = self.config
-        self.model = model
+        self.model = replicate(model, self.mesh)
         self.optimizer = Optimizer(
             model,
             initial_learning_rate=cfg.initial_learning_rate,
@@ -218,17 +245,49 @@ class Trainer:
                                timesteps: Optional[torch.Tensor] = None
                                ) -> Dict[str, torch.Tensor]:
         """Forward and backward of one (micro-)batch under eager attention;
-        the gradients are left in the parameters' ``.grad``. ``noise`` and
-        ``timesteps`` default to draws seeded by (``seed``, ``step``)."""
+        the gradients, averaged over the ranks, are left in the parameters'
+        ``.grad``; returns the losses, averaged likewise. ``batch`` is the
+        global batch (host arrays: the rank takes its rows) or the rank's
+        part on the device. ``noise`` and ``timesteps`` are the global
+        batch's; they default to draws seeded by (``seed``, ``step``)."""
         self.model.train()
-        prepared = prepare_inputs(batch, self.workspace_bounds, self.model_config,
-                                  device=self.device)
-        generator = (None if noise is not None and timesteps is not None
-                     else self._generator(self.config.seed, step))
-        losses = diffusion_train_loss(self.model, prepared, noise, timesteps, generator,
-                                      impl="eager")
+        prepared = prepare_inputs(shard_batch(batch, self.mesh), self.workspace_bounds,
+                                  self.model_config, device=self.device)
+        gt = prepared["gt_gripper_pred"]
+        if noise is None or timesteps is None:
+            # diffusion_train_loss's draws, in its order, for the global batch.
+            generator = self._generator(self.config.seed, step)
+            shape = (gt.shape[0] * self.mesh.world_size,) + tuple(gt.shape[1:])
+            if noise is None:
+                noise = torch.randn(shape, generator=generator, device=self.device,
+                                    dtype=gt.dtype)
+            if timesteps is None:
+                timesteps = torch.randint(0, self.model_config.diffusion_timesteps,
+                                          shape[:1], generator=generator, device=self.device)
+        noise, timesteps = (local_rows(torch.as_tensor(x, device=self.device), self.mesh)
+                            for x in (noise, timesteps))
+        losses = diffusion_train_loss(self.model, prepared, noise, timesteps, impl="eager")
         losses["total"].backward()
-        return {k: v.detach() for k, v in losses.items()}
+        return self._average_over_ranks({k: v.detach() for k, v in losses.items()})
+
+    def _average_over_ranks(self, losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The trainable gradients and ``losses`` averaged over the process
+        group's ranks in place, in one all-reduce of one flat buffer (the
+        frozen backbone has no gradient and is not in it). Without a process
+        group there is nothing to do."""
+        if not (dist.is_available() and dist.is_initialized()):
+            return losses
+        grads = [p.grad for p in self.optimizer.params if p.grad is not None]
+        names = sorted(losses)
+        flat = torch.cat([g.reshape(-1) for g in grads]
+                         + [losses[k].reshape(1).to(torch.float32) for k in names])
+        dist.all_reduce(flat)
+        flat /= self.mesh.world_size
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        return {k: flat[offset + i] for i, k in enumerate(names)}
 
     def train_one_step(self, batch: Dict[str, Any], step: int,
                        noise: Optional[torch.Tensor] = None,
@@ -294,7 +353,7 @@ class Trainer:
                 losses, metrics, pred_pos, gt_pos = self.eval_step(batch, generator=generator)
                 total = float(losses["total"])
                 metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
-            if i == 0 and self.metric_logger is not None:
+            if i == 0 and self.metric_logger is not None and self.mesh.rank == 0:
                 # The GT-vs-prediction figure of the first batch.
                 try:
                     self.metric_logger.log_trajectory_figure(
@@ -308,9 +367,11 @@ class Trainer:
             count += bsz
         if count == 0:
             return float("inf"), {}
-        mean_metrics = {k: v / count for k, v in metric_sums.items()}
-        mean_loss = loss_sum / count
-        if self.metric_logger is not None:
+        # Across ranks (each evaluated its own batches; equal counts).
+        mean_metrics = mean_metrics_across_processes(
+            {"loss": loss_sum / count, **{k: v / count for k, v in metric_sums.items()}})
+        mean_loss = float(mean_metrics.pop("loss"))
+        if self.metric_logger is not None and self.mesh.rank == 0:
             self.metric_logger.log(mean_metrics, step, prefix=f"{split}/")
             self.metric_logger.log({"loss": mean_loss}, step, prefix=f"{split}/")
         logger.info("[%s] step %d: loss %.4f, distance %.4f m, rot err %.2f deg", split, step,
@@ -320,18 +381,17 @@ class Trainer:
 
     # --- the loop ------------------------------------------------------------
     def _to_device(self, batch: Dict[str, Any]):
-        """Start a host batch's copy to the device: (device batch, the copy's
-        event). On CUDA it runs from pinned memory on a side stream, so it
-        overlaps the step in flight."""
-        if self.device.type != "cuda":
-            return {k: None if v is None else torch.as_tensor(v, device=self.device)
-                    for k, v in batch.items()}, None
+        """Start the rank's part of a batch on its way to the device: (device
+        batch, the copy's event). On CUDA a host batch is copied from pinned
+        memory on a side stream, so it overlaps the step in flight; a batch
+        already on the device (a packed epoch's views) is not copied."""
+        if self.device.type != "cuda" or all(v is None or on_mesh_device(v, self.mesh)
+                                             for v in batch.values()):
+            return shard_batch(batch, self.mesh), None
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
         with torch.cuda.stream(self._copy_stream):
-            out = {k: None if v is None else
-                   torch.as_tensor(v).pin_memory().to(self.device, non_blocking=True)
-                   for k, v in batch.items()}
+            out = shard_batch(batch, self.mesh)
         event = torch.cuda.Event()
         event.record(self._copy_stream)
         return out, event
@@ -357,8 +417,9 @@ class Trainer:
     ) -> Optional[float]:
         """Iteration-based training loop; returns the best validation loss.
 
-        ``train_loader`` iterates host batches (dicts of numpy arrays), has a
-        length, and may carry a ``sampler`` with ``set_epoch``.
+        ``train_loader`` iterates host batches (dicts of numpy arrays) or the
+        rank's batches on the device, has a length, and may carry a
+        ``sampler`` with ``set_epoch`` or take ``set_epoch`` itself.
         """
         cfg = self.config
         if self.model is None:
@@ -377,6 +438,10 @@ class Trainer:
                     # The stream reseeds once per set_epoch_every block; the
                     # block's base epoch also restores it on a resume.
                     sampler.set_epoch((epoch_idx // cfg.set_epoch_every) * cfg.set_epoch_every)
+                elif hasattr(train_loader, "set_epoch"):
+                    # A packed epoch's loader: its shuffle is pinned to the
+                    # absolute epoch, so a resume continues its orders.
+                    train_loader.set_epoch(epoch_idx)
                 train_iter = iter(train_loader)
                 next_batch = None
             step_timer = Timer("step")
@@ -394,11 +459,12 @@ class Trainer:
                     next_batch = None
             with Timer("step/train", synchronize=True):
                 losses = self.train_one_step(self._ready(device_batch), step)
-            if (step + 1) % cfg.val_freq == 0 and self.metric_logger is not None:
+            if ((step + 1) % cfg.val_freq == 0 and self.metric_logger is not None
+                    and self.mesh.rank == 0):
                 self.metric_logger.log({f"train-loss/{k}": float(v) for k, v in losses.items()},
                                        step)
             if step % cfg.print_progress_freq == 0:
-                logger.info("step %d/%d (epoch %d): total %.4f pos %.4f rot %.4f grip %.4f",
+                logger.info("step %d/%d (epoch %d): total %.6f pos %.6f rot %.6f grip %.6f",
                             step, cfg.train_iters, epoch_idx, float(losses["total"]),
                             float(losses["pos"]), float(losses["rot"]),
                             float(losses["gripper"]))
@@ -409,31 +475,55 @@ class Trainer:
                 new_loss, _ = self.evaluate_nsteps(validation_loader, step,
                                                    cfg.num_batches_per_test_eval, split="val")
                 if cfg.save_checkpoint:
-                    best_loss = self._save_best_and_last(step, new_loss, best_loss)
-                    if args_dict is not None:
+                    # The asynchronous save is collective: every rank enters
+                    # it. The msgpack files are rank 0's.
+                    if cfg.checkpoint_backend == "orbax" or self.mesh.rank == 0:
+                        best_loss = self._save_best_and_last(step, new_loss, best_loss)
+                    if args_dict is not None and self.mesh.rank == 0:
                         save_training_args(cfg.checkpoint_dir, args_dict)
             step_timer.stop()
             if step % cfg.print_timers_freq == 0 and step > 0:
                 logger.info("\n%s", timer_status_string())
             step += 1
+        if self._orbax is not None:
+            self._orbax.wait()
         return best_loss
 
     def _save_best_and_last(self, step: int, new_loss: Optional[float],
                             best_loss: Optional[float]) -> Optional[float]:
-        """Write last.ckpt, and best.ckpt when ``new_loss`` improves."""
-        return save_checkpoint(self.config.checkpoint_dir, self.model.state_dict(),
+        """Write last, and best when ``new_loss`` improves, through the
+        configured backend; returns the running best."""
+        cfg = self.config
+        if cfg.checkpoint_backend == "orbax":
+            if self._orbax is None:
+                from nvblox_mindmap_torch.training.orbax_checkpoint import OrbaxCheckpointer
+
+                self._orbax = OrbaxCheckpointer(cfg.checkpoint_dir)
+            return self._orbax.save_best_and_last(self.model.state_dict(),
+                                                  self.optimizer.tensor_state(), step,
+                                                  new_loss, best_loss)
+        return save_checkpoint(cfg.checkpoint_dir, self.model.state_dict(),
                                self.optimizer.state_dict(), step, new_loss, best_loss)
 
     def load_checkpoint(self, path: str) -> Tuple[int, Optional[float]]:
-        """Build the model and optimizer from a checkpoint file; returns
-        (iter, best_loss). A port checkpoint restores both. A JAX package
-        checkpoint gives its parameters (through the weight bridge), iter,
-        best_loss and its optax state: the Adam moments, the schedule's
-        update count and a pending accumulation. A file whose optax state is
-        empty (``None``) starts the optimizer afresh, and says so."""
+        """Build the model and optimizer from a checkpoint; returns (iter,
+        best_loss). A port checkpoint (a ``.ckpt`` file, or a ``best/`` /
+        ``last/`` directory of the asynchronous backend) restores both. A
+        JAX package checkpoint file gives its parameters (through the weight
+        bridge), iter, best_loss and its optax state: the Adam moments, the
+        schedule's update count and a pending accumulation. A file whose
+        optax state is empty (``None``) starts the optimizer afresh, and says
+        so."""
         if os.path.isdir(path):
-            raise NotImplementedError(f"orbax checkpoint directories are read by "
-                                      f"{MULTI_GPU_SLICE}")
+            from nvblox_mindmap_torch.training.orbax_checkpoint import OrbaxCheckpointer
+
+            self.init_state()
+            path = path.rstrip("/")
+            ckptr = OrbaxCheckpointer(os.path.dirname(path), async_write=False)
+            _, opt_state, step, best_loss = ckptr.restore(
+                os.path.basename(path), self.model.state_dict(), self.optimizer.tensor_state())
+            self.optimizer.load_tensor_state(opt_state)
+            return step, best_loss
         if is_jax_checkpoint(path):
             params, step, best_loss = read_jax_checkpoint(path)
             self.init_state(flax_params=params)

@@ -197,11 +197,13 @@ class TrainingAppArgs(ModelArgs, SystemArgs, DataGenArgs):
     max_episodes_per_task: int = 100
     eval_only: bool = False
     save_checkpoint: bool = True
-    checkpoint_backend: str = "msgpack"  # or "orbax" (async writes)
+    # "msgpack" (best.ckpt / last.ckpt files) or "orbax" (best/ and last/
+    # directories written asynchronously: training/orbax_checkpoint.py).
+    checkpoint_backend: str = "msgpack"
     demos_train: str = "0"
     demos_valset: Optional[str] = None
-    # Packed-epoch directory (the JAX package's data/packed.py): not ported
-    # yet; the app raises NotImplementedError naming the slice.
+    # A packed-epoch directory (scripts/pack_dataset, data/packed.py): train
+    # from it, staged on the device once, instead of the streaming loader.
     packed_dataset: Optional[str] = None
     # Equal-mass sampling across demo-index groups (e.g. "0-7,8-39" for an
     # expert + DAgger-corrective mix; data/loader.py). Applies to the train

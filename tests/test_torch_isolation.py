@@ -8,7 +8,9 @@
   ``imageio``, ``PIL``, ``wandb`` and ``matplotlib`` blocked, writes demos in
   the reference layout with the port's writer and trains on them through
   the port's training app (``--device cpu``), then resumes from its
-  ``last.ckpt``.
+  ``last.ckpt``; packs them (``scripts/pack_dataset``), trains from the
+  packed epoch with the asynchronous checkpoint backend, resumes from its
+  ``last/`` and serves a batch over two CPU devices.
 - A third, with the same modules blocked, records a cube_stacking demo in
   the port's scene world and runs the datagen, validate-demos and
   closed-loop apps on it (``--device cpu``; the closed loop in its
@@ -19,7 +21,8 @@
   the open-loop app with and without ``--ply_output_dir``.
 - A scan of the port's sources and ``chip_smoke.py`` for such imports.
 - Entry points called without a device on a machine without CUDA raise
-  rather than fall back to the CPU.
+  rather than fall back to the CPU (the packed loader and serving too,
+  unless a CPU device is named).
 """
 import ast
 import dataclasses
@@ -199,6 +202,28 @@ resumed = app.main(argv[:-1] + [os.path.join(root, "logs2"), "--checkpoint", las
                                 "--train_iters", "3"])
 # As the JAX app does, the run resumes at the saved iteration (1): steps 1-2.
 assert resumed["start_iter"] == 1 and resumed["trainer"].optimizer.count == 2 + 2
+# A packed epoch, the asynchronous checkpoint backend, and batched serving.
+import torch
+from nvblox_mindmap_torch.data.packed import PackedEpoch
+from nvblox_mindmap_torch.models.converter import convert_diffusion_scheduler
+from nvblox_mindmap_torch.parallel.serving import make_sharded_infer_fn
+from nvblox_mindmap_torch.scripts import pack_dataset
+
+packed = os.path.join(root, "packed")
+pack_dataset.main(argv + ["--packed_out", packed, "--packed_num_batches", "2"])
+run = argv[:-1] + [os.path.join(root, "logs3"), "--packed_dataset", packed,
+                   "--checkpoint_backend", "orbax"]
+result = app.main(run)
+last = os.path.join(result["checkpoint_dir"], "last")
+assert os.path.isdir(last)
+resumed = app.main(run + ["--checkpoint", last, "--train_iters", "3"])
+assert resumed["start_iter"] == 1
+model = resumed["trainer"].model
+infer = make_sharded_infer_fn(model, app.get_workspace_bounds("cube_stacking"), ["cpu", "cpu"],
+                              **convert_diffusion_scheduler(2))
+traj, _, _ = infer(model.state_dict(), PackedEpoch(packed).batch(0),
+                   generator=torch.Generator().manual_seed(0))
+assert traj.shape == (4, 1, 1, 8) and bool(torch.isfinite(traj).all())
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in {FORBIDDEN})
 print("LOADED", loaded)
@@ -352,7 +377,9 @@ def test_sources_import_nothing_of_jax():
                    "image/conversions.py", "image/pca.py", "visualization/visualizer.py",
                    "utils/system.py", "apps/run_open_loop_policy.py",
                    "scripts/task_success_experiment.py",
-                   "scripts/spatial_memory_experiment.py"):
+                   "scripts/spatial_memory_experiment.py", "parallel/mesh.py",
+                   "parallel/multihost.py", "parallel/serving.py", "data/packed.py",
+                   "scripts/pack_dataset.py", "training/orbax_checkpoint.py"):
         assert os.path.join(ROOT, "nvblox_mindmap_torch", module) in sources, module
     for path in sources:
         with open(path) as f:
@@ -371,7 +398,7 @@ def test_sources_import_nothing_of_jax():
     assert offenders == []
 
 
-def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
+def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch, tmp_path):
     from nvblox_mindmap_torch.models.diffuser_actor import (
         DiffuserActor,
         DiffuserActorConfig,
@@ -422,6 +449,19 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
     policy = NvbloxDiffuserActorPolicy(model, ArmEmbodiment(), mapping, bounds, device="cpu")
     assert policy.mapper.states[MapperId.STATIC].tsdf.device == torch.device("cpu")
     assert make_feature_fn("rgb", (8, 8), device="cpu")(np.zeros((4, 4, 3))).shape == (8, 8, 3)
+    from nvblox_mindmap_torch.data.packed import PackedDeviceLoader, materialize_packed_epoch
+    from nvblox_mindmap_torch.parallel.mesh import make_data_mesh
+    from nvblox_mindmap_torch.parallel.serving import make_sharded_infer_fn
+
+    packed = str(tmp_path / "packed")
+    materialize_packed_epoch([{"vertices": np.zeros((2, 4, 3), np.float32)}], packed)
+    for entry in (make_data_mesh, lambda: PackedDeviceLoader(packed),
+                  lambda: make_sharded_infer_fn(model, bounds)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+    loader = PackedDeviceLoader(packed, mesh=make_data_mesh("cpu"))
+    assert next(iter(loader))["vertices"].device == torch.device("cpu")
+    assert make_sharded_infer_fn(model, bounds, ["cpu"]).copies == 0
 
 
 def test_chip_smoke_refuses_without_cuda():

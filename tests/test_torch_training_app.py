@@ -7,8 +7,10 @@ have, and the ``training_args.json`` overlay. The port's own app, with
 iterations write ``best.ckpt``, ``last.ckpt`` and ``training_args.json``,
 and the port's closed-loop policy predicts from ``best.ckpt`` rebuilt through
 the overlay; ``--eval_only`` on the committed cube_stacking fixture; the
-options of later slices raise ``NotImplementedError`` naming them. The
-JAX app itself is not run (its XLA compile takes minutes).
+packed epoch, the asynchronous checkpoint backend and the world-size check
+of a torchrun launch (``tests/test_torch_packed.py`` and
+``tests/test_torch_parallel.py`` hold them against the JAX app). The JAX
+app itself is not run here (its XLA compile takes minutes).
 """
 import dataclasses
 import json
@@ -22,6 +24,7 @@ import torch
 from nvblox_mindmap_tpu.utils import config as jconfig
 from nvblox_mindmap_torch.apps import run_training as app
 from nvblox_mindmap_torch.data import item_io
+from nvblox_mindmap_torch.scripts import pack_dataset
 from nvblox_mindmap_torch.utils import config as tconfig
 from nvblox_mindmap_torch.utils.logging_utils import MetricLogger
 from tests.test_data_pipeline import write_arm_demo
@@ -185,15 +188,35 @@ def test_eval_only_on_the_committed_fixture(rgb_dataset, tmp_path, no_figures):
     assert not os.path.exists(os.path.join(result["checkpoint_dir"], "last.ckpt"))
 
 
-def test_options_of_later_slices_raise(rgb_dataset, tmp_path, monkeypatch):
+def test_options_of_later_slices_raise(rgb_dataset, tmp_path, monkeypatch, no_figures):
+    """The JAX app's options beyond one streaming GPU, which raised here
+    until their slice was ported, now run: ``--packed_dataset`` trains from
+    a packed epoch, ``--checkpoint_backend orbax`` writes best/ and last/
+    directories and ``--checkpoint`` resumes from last/, and a WORLD_SIZE
+    that does not split ``--batch_size`` raises before any process group is
+    joined. What still raises: wandb without its package, an rgbd model
+    without pretrained weights, and the default device without a card."""
     base = TINY + ["--dataset", rgb_dataset, "--base_log_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="packed-dataset slice"):
-        app.main(base + ["--packed_dataset", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        app.main(base + ["--checkpoint_backend", "orbax"])
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        app.main(base)
+    run = base + ["--demos_train", "0-1", "--demos_valset", "2", "--batch_size", "8",
+                  "--batch_size_val", "8", "--train_iters", "2", "--val_freq", "2",
+                  "--num_batches_per_test_eval", "1", "--skip_train_val", "1"]
+    packed = str(tmp_path / "packed")
+    assert pack_dataset.main(run + ["--packed_out", packed,
+                                    "--packed_num_batches", "2"])["num_batches"] == 2
+    run += ["--packed_dataset", packed, "--checkpoint_backend", "orbax"]
+    result = app.main(run)
+    ckpt_dir = result["checkpoint_dir"]
+    assert {"best", "last", "training_args.json"} <= set(os.listdir(ckpt_dir))
+    assert os.path.isdir(os.path.join(ckpt_dir, "last"))
+    assert result["trainer"].optimizer.count == 2
+    assert os.path.realpath(os.path.join(tmp_path, "checkpoints", "latest")) == \
+        os.path.realpath(ckpt_dir)
+    resumed = app.main(run + ["--train_iters", "3", "--checkpoint",
+                              os.path.join(ckpt_dir, "last")])
+    assert resumed["start_iter"] == 1 and resumed["trainer"].optimizer.count == 2 + 2
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    with pytest.raises(ValueError, match="does not split into the 3 ranks"):
+        app.main(base + ["--batch_size", "8"])
     monkeypatch.delenv("WORLD_SIZE")
     monkeypatch.setitem(sys.modules, "wandb", None)
     with pytest.raises(ImportError, match="wandb_mode disabled"):
