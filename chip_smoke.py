@@ -2,8 +2,9 @@
 """Drive the torch port's keypose prediction, live mapping, closed-loop
 policy, training, its training, open-loop, datagen and closed-loop apps,
 the task-success and spatial-memory experiments with the committed trained
-policies, training from a packed epoch and under torchrun, and batched
-serving, on one NVIDIA GPU.
+policies, training from a packed epoch and under torchrun, batched
+serving, the CLIP ResNet-50 FPN extractor through the loop and the
+language layers, on one NVIDIA GPU.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It
 
@@ -17,7 +18,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    key chunks; times kernel, plain version, one library call for the same
    function (a yardstick the port never calls) and the least time the card
    could take (``bound_ms``), at head dims 64, 128, 144, 192 and 256 and
-   for bf16 inputs too; and times both kernels at L = 1..8 (phase ``threshold``: the
+   for bf16 inputs too, and at the language layers' shapes over a 53-token
+   instruction (L = 4096, 1 and 820, masked and unmasked, B = 1 and 8);
+   and times both kernels at L = 1..8 (phase ``threshold``: the
    measurement behind the split kernel's limit);
 4. times the RADIO ViT-B/16 backbone's forward (phase ``vit``) at the
    flagship's 2 cameras x 512x512, for batch 1 and 8, beside its bound;
@@ -88,8 +91,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    of the same model, the batch wait and idle shares, and an asynchronous
    save of the trainer's state (its return and write times) restored bit
    for bit. Then the torchrun run of phase ``ddp`` starts (12);
-10. side by side with 11 and with the torchrun run of 12, one worker
-   process per task (each is host-bound), runs the task-success experiment's ``closed_loop`` stage (phase
+10. side by side with 11, with the torchrun run of 12 and with 17-19 in
+   this process, one worker process per task (each is host-bound), runs
+   the task-success experiment's ``closed_loop`` stage (phase
    ``task_success``) for each of the four committed trained fixtures
    (``tests/test_data/task_success/<task>/last.ckpt``: width 72, 8 heads,
    512 sampled vertices) on 4 of the 8 scenes the port's generator
@@ -139,7 +143,26 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    app, task-success and spatial-memory phases gave the kernels and no
    earlier row held (``kernel_check`` rows ``path_shape``; phase
    ``path_shapes`` lists them all);
-17. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}``
+17. holds the CLIP ResNet-50 FPN extractor (phase ``clip_extractor``: a
+   seeded random CLIP RN50 trunk converted by the port's converter, with an
+   FPN) on the card against the CPU, times it at B = 2 and 32 beside its
+   FLOP bound (IEEE fp32, and with TF32 allowed), and checks that one
+   backward pass reaches only the FPN levels that res3 reads;
+18. runs the loop with ``--feature_type clip_resnet50_fpn`` (phase
+   ``clip_loop``): the datagen app writes 120-d features for every frame
+   of three 512x512 demos; the training app trains the app's flagship
+   (B = 32) 8 steps with the FPN training, the trunk bit for bit, and
+   evaluates one batch (23 + 80 launches); ``extract_fpn_from_model`` takes
+   best.ckpt's FPN into an .npz whose ``make_feature_fn`` gives the trained
+   extractor's features; the closed-loop app runs best.ckpt in the replay
+   world, every goal 23 + 80 launches;
+19. predicts with the flagship (2 cameras, 4096 context and 820
+   self-attention tokens) with ``use_instruction`` and ``lang_enhanced`` and
+   a (B, 53, 512) instruction (phase ``language``), DDIM-10 at B = 1 and 8:
+   33 split + 132 tile launches per prediction, flash against eager
+   attention (atol 5e-3) from one encoding and where the FPS picks of the
+   two encodings agree;
+20. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}``
    as the last line.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -467,6 +490,20 @@ def check_kernels():
             ("rgbd_denoiser_cross", B, HEADS, 1, SM_RGBD_CONTEXT, 9, True),
             ("rgbd_self", B, HEADS, SM_RGBD_SELF, SM_RGBD_SELF, 9, True),
         ]
+    # The language layers over a 53-token instruction (phase language): the
+    # flagship's 4096 context tokens cross-attending to it (vl_attention),
+    # the trajectory query (traj_lang_attention) and the 820 self-attention
+    # tokens (the interleaved cross layers); unmasked as the model runs
+    # them, and masked; at B = 1 and 8.
+    for B in (1, 8):
+        for suffix, masked in (("", False), ("_masked", True)):
+            shapes += [
+                (f"language_vl_cross{suffix}", B, HEADS, CONTEXT["rgbd_and_mesh"],
+                 INSTRUCTION_TOKENS, 15, masked),
+                (f"language_traj_cross{suffix}", B, HEADS, 1, INSTRUCTION_TOKENS, 15, masked),
+                (f"language_self_cross{suffix}", B, HEADS, flagship_self, INSTRUCTION_TOKENS,
+                 15, masked),
+            ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for what, B, H, L, S, D, masked in shapes:
@@ -1469,13 +1506,13 @@ def wrist_camera(state):
     return look_at_pose7(eye, [eye[0] + 0.15, eye[1], 0.0])
 
 
-def write_app_dataset(root, seed=0):
+def write_app_dataset(root, seed=0, vertex_features=True):
     """Two train and one val demo of ``APP_FRAMES`` frames in the reference
     layout, written with the port's ``DemoWriter``: the ego camera's RGB
     and depth at 512x512 over the analytic scene (inside cube_stacking's
-    workspace), its pose and intrinsics, the robot state, and
-    ``APP_STORED_VERTICES`` surface points of the frame with 768-d fp16
-    features. Returns (bytes written, seconds)."""
+    workspace), its pose and intrinsics, the robot state, and (unless the
+    datagen app is to write them) ``APP_STORED_VERTICES`` surface points of
+    the frame with 768-d fp16 features. Returns (bytes written, seconds)."""
     import numpy as np
 
     from nvblox_mindmap_torch.data.batching import _backproject_np
@@ -1497,6 +1534,8 @@ def write_app_dataset(root, seed=0):
             pose7, rgb, depth, K, points = views[view]
             writer.write_robot_state(i, state)
             writer.write_camera_frame(i, "wrist", rgb, depth, pose7, K)
+            if not vertex_features:
+                continue
             pick = rng.choice(len(points), APP_STORED_VERTICES, replace=False)
             writer.write_vertex_features(
                 i, points[pick], rng.standard_normal((APP_STORED_VERTICES, FEATURE_DIM),
@@ -1510,36 +1549,15 @@ def write_app_dataset(root, seed=0):
 def save_random_backbone(path):
     """The seeded random RADIO ViT-B/16 as a converted ``.npz`` (the flax
     layout of ``weight_conversion.save_variables_npz``); returns the module."""
-    import numpy as np
     import torch
 
     from nvblox_mindmap_torch.models.feature_extractors import make_feature_extractor
     from nvblox_mindmap_torch.models.weight_conversion import save_variables_npz
-    from nvblox_mindmap_torch.models.weights import flax_paths
+    from nvblox_mindmap_torch.models.weights import state_dict_to_flax
 
     torch.manual_seed(11)
     vit = make_feature_extractor("radio_v25_b", (PATCHES, PATCHES))
-    heads = vit.width // 64
-    params = dict(vit.named_parameters())
-    tree = {}
-    for name, flax_path in flax_paths(vit).items():
-        w = params[name].detach().numpy()
-        leaf, parent = flax_path[-1], flax_path[-2] if len(flax_path) > 1 else ""
-        if leaf == "kernel" and w.ndim == 4:  # Conv (out, in, kh, kw) -> (kh, kw, in, out)
-            w = w.transpose(2, 3, 1, 0)
-        elif leaf == "kernel" and parent in ("query", "key", "value"):  # -> (E, H, D)
-            w = w.T.reshape(w.shape[1], heads, -1)
-        elif leaf == "kernel" and parent == "out":  # -> (H, D, E)
-            w = w.T.reshape(heads, -1, w.shape[0])
-        elif leaf == "kernel":
-            w = w.T
-        elif leaf == "bias" and parent in ("query", "key", "value"):
-            w = w.reshape(heads, -1)
-        node = tree
-        for part in flax_path[:-1]:
-            node = node.setdefault(part, {})
-        node[leaf] = np.ascontiguousarray(w)
-    save_variables_npz(path, {"params": tree})
+    save_variables_npz(path, {"params": state_dict_to_flax(vit.state_dict())})
     return vit
 
 
@@ -2493,6 +2511,551 @@ def run_closed_loop_app(root, checkpoint, npz):
 
 
 # --------------------------------------------------------------------------
+# The CLIP ResNet-50 FPN extractor and the language layers
+# --------------------------------------------------------------------------
+
+CLIP_FEATURES = 120  # the FPN's channels: the vertex features of a CLIP dataset
+CLIP_TIMED_BATCHES = (CAMERAS, TRAIN_BATCH)  # the flagship's 2 cameras; a train batch
+# Card vs CPU, both IEEE fp32 (TF32 off in the extractor's convolutions):
+# the features within CLIP_REL_ATOL of their largest magnitude, the FPN's
+# gradients within CLIP_GRAD_REL_ATOL of each tensor's largest entry.
+CLIP_REL_ATOL = 1e-4
+CLIP_GRAD_REL_ATOL = 1e-4
+CLIP_TRAIN_ITERS = 8  # then one validation batch
+CLIP_PROFILED_STEPS = (6, 7)  # steps 1-5 timed, these two profiled
+CLIP_DEAD_LEVELS = ("inner_0", "inner_1", "layer_0", "layer_1", "layer_3", "layer_4")
+INSTRUCTION_TOKENS = 53  # 3D Diffuser Actor's padded CLIP-text length
+INSTRUCTION_DIM = 512
+LANGUAGE_REPS = (8, 6)  # host-clock predictions per impl at B = 1 and B = 8
+
+
+def save_random_clip(path, seed=12):
+    """A seeded random CLIP RN50 visual trunk as CLIP's torch state dict
+    (``visual.`` keys, BatchNorm running statistics calibrated on the card
+    over 8 random CLIP-normalized images so that each BatchNorm's output is
+    normalized, an attention-pool key the converter skips), converted by the port's converter, with a fresh
+    FPN beside it, saved as the flax-layout ``.npz``."""
+    import numpy as np
+    import torch
+
+    from nvblox_mindmap_torch.models.clip_resnet_fpn import (
+        CLIP_MEAN,
+        CLIP_STD,
+        FeaturePyramidNetwork,
+        FrozenBatchNorm,
+        ModifiedResNetFeatures,
+    )
+    from nvblox_mindmap_torch.models.layers import init_as_flax_
+    from nvblox_mindmap_torch.models.weight_conversion import (
+        convert_clip_resnet_weights,
+        save_variables_npz,
+    )
+    from nvblox_mindmap_torch.models.weights import state_dict_to_flax
+
+    torch.manual_seed(seed)
+    trunk = init_as_flax_(ModifiedResNetFeatures())
+    fpn = init_as_flax_(FeaturePyramidNetwork(trunk.out_channels(), CLIP_FEATURES))
+
+    def calibrate(bn, args):
+        x = args[0]
+        bn.mean.data = x.mean((0, 2, 3))
+        bn.var.data = x.var((0, 2, 3))
+
+    hooks = [m.register_forward_pre_hook(calibrate) for m in trunk.modules()
+             if isinstance(m, FrozenBatchNorm)]
+    images = torch.rand(8, 3, 8 * PATCHES, 8 * PATCHES)
+    mean, std = (torch.tensor(v)[:, None, None] for v in (CLIP_MEAN, CLIP_STD))
+    with torch.no_grad():
+        trunk.to("cuda")((images.to("cuda") - mean.to("cuda")) / std.to("cuda"))
+    for hook in hooks:
+        hook.remove()
+    trunk.cpu()
+    sd = {}
+    for name, p in trunk.named_parameters():
+        module, _, leaf = name.rpartition(".")
+        module = module.replace("downsample_conv", "downsample.0").replace(
+            "downsample_bn", "downsample.1")
+        if module.startswith("layer"):
+            module = module.replace("_", ".", 1)
+        leaf = {"mean": "running_mean", "var": "running_var"}.get(leaf, leaf)
+        sd[f"visual.{module}.{leaf}"] = p.detach().numpy()
+    sd["visual.attnpool.c_proj.weight"] = np.zeros((1024, 2048), np.float32)
+    params = {"backbone": convert_clip_resnet_weights(sd)["params"],
+              "fpn": state_dict_to_flax(fpn.state_dict())}
+    save_variables_npz(path, {"params": params})
+
+
+def clip_bound(module, B):
+    """(bound_ms, bound_by, flops) of the extractor over B images: the
+    multiply-adds of every convolution it runs (the trunk's, from hooks on
+    this input; the FPN's laterals 2-4 and its res3 output) at the fp32
+    (non-tensor-core) peak, against the images read, the parameters read
+    once and the features written at the HBM rate."""
+    import torch
+
+    flops = []
+
+    def count(conv, args, out):
+        flops.append(2 * out.numel() * conv.in_channels * conv.kernel_size[0]
+                     * conv.kernel_size[1] // conv.groups)
+
+    hooks = [m.register_forward_hook(count) for m in module.backbone.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        feats = module.trunk(torch.zeros(B, IMAGE, IMAGE, 3, device="cuda"))
+    for hook in hooks:
+        hook.remove()
+    h, w = feats[2].shape[-2:]
+    for i in (2, 3, 4):
+        flops.append(2 * feats[i].numel() * CLIP_FEATURES)
+    flops.append(2 * B * h * w * CLIP_FEATURES * CLIP_FEATURES * 9)
+    total = sum(flops)
+    live = [p for n, p in module.named_parameters()
+            if not (n.startswith("fpn.") and n.split(".")[1] in CLIP_DEAD_LEVELS)]
+    nbytes = 4 * (B * IMAGE * IMAGE * 3 + sum(p.numel() for p in live)
+                  + B * h * w * CLIP_FEATURES)
+    t_ops = total / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return bound + (total,)
+
+
+def measure_clip(npz):
+    """Phase ``clip_extractor``: the CLIP extractor (the .npz's trunk and
+    FPN) on the card against itself on the CPU, same weights and input; its
+    device time at B = 2 and 32 beside its FLOP bound, and beside the same
+    module with TF32 allowed in its convolutions; one backward pass: no
+    gradient on the trunk or the FPN levels res3 does not read, the others'
+    equal to the CPU's."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    from nvblox_mindmap_torch.models import clip_resnet_fpn
+    from nvblox_mindmap_torch.models.pretrained import build_backbone
+
+    t_phase = time.perf_counter()
+    size = (PATCHES, PATCHES)
+    cpu = build_backbone("clip_resnet50_fpn", npz, size, device="cpu")
+    card = build_backbone("clip_resnet50_fpn", npz, size, device="cuda")
+    gen = torch.Generator().manual_seed(13)
+    rgb = torch.rand(CAMERAS, IMAGE, IMAGE, 3, generator=gen)
+    weights = torch.randn(CAMERAS, PATCHES, PATCHES, CLIP_FEATURES, generator=gen)
+
+    def loss(module, device):
+        return (module(rgb.to(device)) * weights.to(device)).sum()
+
+    with torch.no_grad():
+        ref = cpu(rgb)
+        out = card(rgb.cuda()).cpu()
+    if out.shape != (CAMERAS, PATCHES, PATCHES, CLIP_FEATURES):
+        raise AssertionError(f"clip_extractor: output {tuple(out.shape)}")
+    scale = ref.abs().max().item()
+    err = (out - ref).abs().max().item()
+    if not (err <= CLIP_REL_ATOL * scale and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"clip_extractor: card vs CPU {err} > {CLIP_REL_ATOL} x {scale}")
+    loss(cpu, "cpu").backward()
+    loss(card, "cuda").backward()
+    grad_err, trained = 0.0, 0
+    for (name, p_cpu), p in zip(cpu.named_parameters(), card.parameters()):
+        dead = name.startswith("fpn.") and name.split(".")[1] in CLIP_DEAD_LEVELS
+        if name.startswith("backbone.") or dead:
+            if p.grad is not None or p_cpu.grad is not None:
+                raise AssertionError(f"clip_extractor: {name} got a gradient")
+            continue
+        g = p.grad.cpu()
+        rel = (g - p_cpu.grad).abs().max().item() / p_cpu.grad.abs().max().item()
+        if not (rel <= CLIP_GRAD_REL_ATOL and g.abs().max().item() > 0):
+            raise AssertionError(f"clip_extractor: {name} gradient card vs CPU {rel}")
+        grad_err, trained = max(grad_err, rel), trained + 1
+    if trained != 8:  # inner_2..4 and layer_2, weight and bias
+        raise AssertionError(f"clip_extractor: {trained} FPN tensors got gradients")
+    del cpu
+
+    timings = []
+    for B in CLIP_TIMED_BATCHES:
+        x = torch.rand(B, IMAGE, IMAGE, 3, device="cuda")
+        with torch.no_grad():
+            device_ms = gpu_time_ms(lambda: card(x), reps=3, iters=3)
+            before = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                with mock.patch.object(clip_resnet_fpn, "fp32_convolutions",
+                                       contextlib.nullcontext):
+                    tf32_ms = gpu_time_ms(lambda: card(x), reps=3, iters=3)
+            finally:
+                torch.backends.cudnn.allow_tf32 = before
+        bound_ms, bound_by, flops = clip_bound(card, B)
+        timings.append(dict(B=B, input=8 * PATCHES, device_ms=device_ms, tf32_ms=tf32_ms,
+                            flops=flops, flops_per_image=flops / B, bound_ms=bound_ms,
+                            bound_by=bound_by, bound_share=bound_ms / device_ms,
+                            tflops_per_s=flops / device_ms / 1e9))
+    del card
+    torch.cuda.empty_cache()
+    phase("clip_extractor", feature_image_size=list(size), precision="fp32 (TF32 off)",
+          card_vs_cpu_max_abs_err=err, feature_max_abs=scale, rel_atol=CLIP_REL_ATOL,
+          fpn_grad_card_vs_cpu_rel_err=grad_err, fpn_tensors_with_grad=trained,
+          trunk_and_unread_levels_without_grad=True, timings=timings,
+          seconds=time.perf_counter() - t_phase)
+
+
+class step_profile:
+    """Within the block, the calls of ``Trainer.train_one_step`` numbered
+    ``profiled`` (from 0) are profiled on the card: the device busy time
+    over the calls' host-clock time. The profiler's own start and stop are
+    in those calls' step times: time the other steps."""
+
+    def __init__(self, profiled):
+        self.profiled = set(profiled)
+
+    def __enter__(self):
+        from unittest import mock
+
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        from nvblox_mindmap_torch.training.trainer import Trainer
+
+        self.calls, self.wall_ms, self.busy_ms = 0, 0.0, 0.0
+        real = Trainer.train_one_step
+
+        def wrapper(trainer, *args, **kwargs):
+            self.calls += 1
+            if self.calls - 1 not in self.profiled:
+                return real(trainer, *args, **kwargs)
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = real(trainer, *args, **kwargs)
+                torch.cuda.synchronize()
+                self.wall_ms += (time.perf_counter() - t0) * 1e3
+            self.busy_ms += sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+                                if e.device_type == DeviceType.CUDA)
+            return out
+
+        self.patch = mock.patch.object(Trainer, "train_one_step", wrapper)
+        self.patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.patch.__exit__(*exc)
+        return False
+
+    def fields(self):
+        return dict(steps=sorted(self.profiled), wall_ms=self.wall_ms,
+                    device_busy_ms=self.busy_ms,
+                    device_idle_share=1 - self.busy_ms / self.wall_ms)
+
+
+def run_clip_loop(work, npz):
+    """Phase ``clip_loop``: the loop with ``--feature_type clip_resnet50_fpn``
+    at the app's flagship (cube_stacking, the ego camera at IMAGE: 32x32 res3
+    tokens, 2048 of the stored 120-d vertices; B = 32). The datagen app
+    writes every frame's 120-d vertex features of the app dataset's three
+    demos through the CLIP .npz; the training app trains on them
+    ``CLIP_TRAIN_ITERS`` steps with the FPN training, then evaluates one
+    batch; ``scripts/extract_fpn_from_model`` takes best.ckpt's FPN and
+    trunk into an .npz, whose ``make_feature_fn`` gives the trained
+    extractor's features; the closed-loop app runs best.ckpt with those
+    mapping features on the validation demo's frames (the replay world),
+    DDIM-10. Returns each kernel's launches."""
+    import collections
+    import contextlib
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from nvblox_mindmap_torch.apps import run_closed_loop_policy as loop_app
+    from nvblox_mindmap_torch.apps import run_datagen as datagen_app
+    from nvblox_mindmap_torch.apps import run_training as train_app
+    from nvblox_mindmap_torch.closed_loop import policies
+    from nvblox_mindmap_torch.data import item_io
+    from nvblox_mindmap_torch.models.clip_resnet_fpn import ClipResNet50Fpn
+    from nvblox_mindmap_torch.models.feature_extractors import resize_bilinear
+    from nvblox_mindmap_torch.models.pretrained import make_feature_fn
+    from nvblox_mindmap_torch.models.weight_conversion import load_variables_npz
+    from nvblox_mindmap_torch.models.weights import flax_to_state_dict
+    from nvblox_mindmap_torch.scripts import extract_fpn_from_model
+    from nvblox_mindmap_torch.training.checkpoint import load_checkpoint_file
+    from nvblox_mindmap_torch.utils import timers
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "clip_loop")
+    data = os.path.join(root, "dataset")
+    dataset_bytes, write_s = write_app_dataset(data, vertex_features=False)
+
+    # Datagen: every frame of the three demos, 120-d CLIP features.
+    timers.reset_timers()
+    datagen_ms = host_ms(lambda: datagen_app.main([
+        "--task", APP_TASK, "--dataset", data, "--demos_datagen", "0-2",
+        "--feature_type", "clip_resnet50_fpn", "--backbone_weights", npz,
+        "--feature_image_size", f"{PATCHES},{PATCHES}", "--image_size", f"{IMAGE},{IMAGE}"]))
+    frames = 3 * APP_FRAMES
+    parts = {name.split("/")[1]: summary_ms([t * 1e3 for t in timers.timer_samples(name)])
+             for name in ("datagen/decay", "datagen/compute_features", "datagen/integrate",
+                          "datagen/export_mesh")}
+    if any(p["reps"] != frames for p in parts.values()):
+        raise AssertionError(f"clip_loop datagen: timers {parts}")
+    vertices = []
+    for d in range(3):
+        for t in range(APP_FRAMES):
+            item = item_io.load_item(os.path.join(data, f"demo_{d:05d}",
+                                                  f"{t}.nvblox_vertex_features.zst"))
+            n = len(item["vertices"])
+            if item["features"].shape != (n, CLIP_FEATURES) or n == 0 or not np.isfinite(
+                    item["features"]).all():
+                raise AssertionError(f"clip_loop datagen: demo {d} frame {t} features "
+                                     f"{item['features'].shape}")
+            vertices.append(n)
+
+    # Training: the FPN trains, the trunk stays.
+    per_batch = {"flash_attention_split": 3 + 2 * EVAL_STEPS,
+                 "flash_attention_tile": 8 * EVAL_STEPS}
+    flags = ["--dataset", data, "--task", APP_TASK, "--data_type", "rgbd_and_mesh",
+             "--feature_type", "clip_resnet50_fpn", "--feature_image_size",
+             f"{PATCHES},{PATCHES}", "--embedding_dim", str(EMBEDDING),
+             "--batch_size", str(TRAIN_BATCH), "--batch_size_val", str(TRAIN_BATCH),
+             "--num_vertices_to_sample", str(VERTICES), "--demos_train", "0-1",
+             "--demos_valset", "2", "--train_iters", str(CLIP_TRAIN_ITERS),
+             "--val_freq", str(CLIP_TRAIN_ITERS), "--num_batches_per_test_eval", "1",
+             "--skip_train_val", "1", "--backbone_weights", npz, "--num_workers", "4",
+             "--print_progress_freq", "1", "--print_timers_freq", "1000000",
+             "--base_log_dir", os.path.join(root, "logs")]
+    timers.reset_timers()
+    reset_flash_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with step_profile(CLIP_PROFILED_STEPS) as steps:
+        result = train_app.main(flags)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = flash_counts()
+    if counts != per_batch:
+        raise AssertionError(f"clip_loop train: {counts} flash launches, expected {per_batch}")
+    launches = dict(counts)
+    # Step 0 warms up; the profiled steps carry the profiler's own cost.
+    timed_steps = slice(1, min(CLIP_PROFILED_STEPS))
+    load = [t * 1e3 for t in timers.timer_samples("step/load_batch")[timed_steps]]
+    train = [t * 1e3 for t in timers.timer_samples("step/train")[timed_steps]]
+    fed = [a + b for a, b in zip(load, train)]
+    best = os.path.join(result["checkpoint_dir"], "best.ckpt")
+    if not np.isfinite(result["best_loss"]) or not os.path.exists(best):
+        raise AssertionError(f"clip_loop train: {result['best_loss']}, {best}")
+    state = load_checkpoint_file(best)["state_dict"]
+    start = flax_to_state_dict(load_variables_npz(npz)["params"])
+    prefix = "encoder.feature_extractor."
+    for name, value in start.items():
+        if name.startswith("backbone.") and not torch.equal(state[prefix + name], value):
+            raise AssertionError(f"clip_loop train: the trunk's {name} changed")
+    moved = sorted(name for name, value in start.items() if name.startswith("fpn.")
+                   and not torch.equal(state[prefix + name], value))
+    if not any(".layer_2." in n for n in moved) or len(moved) < 8:
+        raise AssertionError(f"clip_loop train: the FPN moved only in {moved}")
+
+    # The trained FPN (and the trunk) out of best.ckpt, into the mapping
+    # feature function: the trained extractor's features on one frame.
+    fpn_npz = os.path.join(root, "fpn.npz")
+    extract_fpn_from_model.main(["--model_path", best, "--output_path", fpn_npz])
+    extractor = ClipResNet50Fpn((PATCHES, PATCHES))
+    extractor.load_state_dict({k[len(prefix):]: v for k, v in state.items()
+                               if k.startswith(prefix)})
+    extractor.to("cuda")
+    frame = item_io.decode_png(os.path.join(data, "demo_00002", "0.wrist_rgb.png"))
+    frame = torch.from_numpy(frame.astype(np.float32) / 255.0).cuda()
+    feature_fn = make_feature_fn("clip_resnet50_fpn", (IMAGE, IMAGE), fpn_npz,
+                                 (PATCHES, PATCHES), device="cuda")
+    with torch.no_grad():
+        want = resize_bilinear(extractor(frame[None]), (IMAGE, IMAGE))[0]
+        got = feature_fn(frame)
+    extract_err = (got - want).abs().max().item()
+    if not extract_err <= 1e-5 * max(1.0, want.abs().max().item()):
+        raise AssertionError(f"clip_loop extract: make_feature_fn vs the trained extractor "
+                             f"{extract_err}")
+    del extractor, feature_fn, state
+    torch.cuda.empty_cache()
+
+    # The closed-loop app: best.ckpt, the trained FPN's mapping features.
+    times = collections.defaultdict(list)
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    Policy = policies.NvbloxDiffuserActorPolicy
+    with contextlib.ExitStack() as patches:
+        for owner, name, value in ((Policy, "step", timed("sim_step", Policy.step)),
+                                   (Policy, "get_new_goal", timed("goal", Policy.get_new_goal))):
+            patches.enter_context(mock.patch.object(owner, name, value))
+        reset_flash_counts()
+        summary = loop_app.main([
+            "--task", APP_TASK, "--dataset", data, "--demos_closed_loop", "2",
+            "--data_type", "rgbd_and_mesh", "--feature_type", "clip_resnet50_fpn",
+            "--checkpoint", best, "--backbone_weights", fpn_npz,
+            "--serving_scheduler", "ddim", "--serving_num_inference_steps",
+            str(CLOSED_LOOP_STEPS), "--max_num_steps_to_goal", str(LOOP_STEPS_TO_GOAL),
+            "--terminate_after_n_steps", str(LOOP_STEPS),
+            "--eval_file_path", os.path.join(root, "closed_loop_eval.json")], "replay")
+        loop_counts = flash_counts()
+    goals = len(times["goal"])
+    T = CLOSED_LOOP_STEPS
+    expected = {"flash_attention_split": goals * (3 + 2 * T),
+                "flash_attention_tile": goals * 8 * T}
+    if goals < 3 or loop_counts != expected:
+        raise AssertionError(f"clip_loop closed loop: {loop_counts} over {goals} goals, "
+                             f"expected {expected}")
+    add_launches(launches, loop_counts)
+    phase("clip_loop", task=APP_TASK, feature_type="clip_resnet50_fpn", cameras=1,
+          image=IMAGE, batch=TRAIN_BATCH, vertices=VERTICES, feature_dim=CLIP_FEATURES,
+          context_tokens=APP_CONTEXT, self_attention_tokens=APP_SELF,
+          dataset=dict(demos=3, frames=APP_FRAMES, mb=dataset_bytes / 1e6, write_s=write_s),
+          datagen=dict(frames=frames, app_ms=datagen_ms, parts_per_frame=parts,
+                       vertices_per_frame=dict(p50=statistics.median(vertices),
+                                               min=min(vertices), max=max(vertices))),
+          train=dict(steps=CLIP_TRAIN_ITERS, val_loss=result["best_loss"],
+                     step_p50_ms=statistics.median(fed), step_ms=fed,
+                     load_batch_p50_ms=statistics.median(load),
+                     train_p50_ms=statistics.median(train), idle=steps.fields(),
+                     peak_memory_gb=peak_gb, fpn_tensors_moved=len(moved),
+                     trunk_bit_for_bit=True, launches_per_eval_batch=counts),
+          extract=dict(make_feature_fn_vs_trained_max_abs_err=extract_err),
+          closed_loop=dict(world="replay", sampler=f"ddim{T}", goals=goals,
+                           launches=loop_counts, summary=summary,
+                           sim_step=summary_ms(times["sim_step"]), goal=summary_ms(times["goal"])),
+          seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def language_expected(T):
+    """Flash launches of one prediction of the language model: split 3
+    (gripper history) + 2 per step (denoiser cross) + 1 per step
+    (trajectory -> instruction); tile 2 (vision -> instruction) + 8 per
+    step (self-attention) + 5 per step (the interleaved cross layers to the
+    instruction: 3 + 1 + 1)."""
+    return {"flash_attention_split": 3 + 3 * T, "flash_attention_tile": 2 + 13 * T}
+
+
+def run_language():
+    """Phase ``language``: the flagship prediction (rgbd_and_mesh, 2 cameras,
+    4096 context and 820 self-attention tokens) with ``use_instruction`` and
+    ``lang_enhanced`` and a (B, 53, 512) instruction of random features,
+    DDIM-10 at B = 1 and 8: flash against eager attention (atol 5e-3), the
+    launches of each kernel, the host-clock p50 of each impl and, at B = 1,
+    the profile. Returns each kernel's launches."""
+    import dataclasses
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from nvblox_mindmap_torch.models.converter import (
+        apply_inference_settings,
+        convert_diffusion_scheduler,
+        convert_to_flash_attention,
+    )
+    from nvblox_mindmap_torch.models.diffuser_actor import (
+        DiffuserActor,
+        prepare_inputs,
+        sample_trajectory,
+    )
+    from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(model_config("rgbd_and_mesh"), use_instruction=True,
+                              lang_enhanced=True)
+    torch.manual_seed(0)
+    model = DiffuserActor(cfg, device="cuda")
+    bounds = np.asarray(WORKSPACE, dtype=np.float32)
+    sampler = convert_diffusion_scheduler(CLOSED_LOOP_STEPS)
+    T = sampler["num_inference_steps"]
+    launches = {}
+    for B, reps in zip((1, 8), LANGUAGE_REPS):
+        batch = make_batch(B, "rgbd_and_mesh", seed=7)
+        batch["instruction"] = np.random.default_rng(8).normal(
+            size=(B, INSTRUCTION_TOKENS, INSTRUCTION_DIM)).astype(np.float32)
+        prepared = prepare_inputs(batch, bounds, cfg, device="cuda")
+        init = torch.randn((B, 1, 1, 9), generator=torch.Generator(device="cuda").manual_seed(9),
+                           device="cuda")
+
+        def predict():
+            return sample_trajectory(model, prepared, bounds, init_noise=init, **sampler)[0]
+
+        # The encoder under each impl: vision -> instruction attention moves
+        # the context features (to ~1e-6), and FPS over them can then pick
+        # another token at a near-tie, so the denoising is compared from
+        # one (eager) encoding, and whole predictions where the picks agree.
+        encoded = {}
+        with torch.no_grad():
+            for impl in ("eager", "flash"):
+                set_default_attention_impl(impl)
+                encoded[impl] = model.encode_prepared(prepared)
+        fixed = encoded["eager"]
+        tokens = (fixed["context_feats"].shape[1], 1 + fixed["fps_feats"].shape[1],
+                  fixed["instr_feats"].shape[1])
+        if tokens != (CONTEXT["rgbd_and_mesh"], 1 + CONTEXT["rgbd_and_mesh"] // FPS_FACTOR,
+                      INSTRUCTION_TOKENS):
+            raise AssertionError(f"language: tokens {tokens}")
+        context_err = (encoded["flash"]["context_feats"] - fixed["context_feats"]).abs().max()
+        if not context_err.item() <= DENOISE_ATOL:
+            raise AssertionError(f"language B={B}: flash vs eager context {context_err}")
+        same_picks = (encoded["flash"]["fps_pos"] == fixed["fps_pos"]).flatten(1).all(1)
+        set_default_attention_impl("eager")
+        traj_eager = predict()
+        with mock.patch.object(model, "encode_prepared", lambda *a, **k: fixed):
+            shared_eager = predict()
+            set_default_attention_impl("flash")
+            shared_flash = predict()
+        denoise_err = (shared_flash - shared_eager).abs().max().item()
+        if not denoise_err <= TRAJ_ATOL:
+            raise AssertionError(f"language B={B}: flash vs eager from one encoding "
+                                 f"{denoise_err} > {TRAJ_ATOL}")
+        apply_inference_settings(convert_to_flash_attention())
+        reset_flash_counts()
+        traj = predict()
+        torch.cuda.synchronize()
+        counts = flash_counts()
+        if counts != language_expected(T):
+            raise AssertionError(f"language B={B}: {counts}, expected {language_expected(T)}")
+        add_launches(launches, counts)
+        rows_err = (traj - traj_eager).abs().flatten(1).amax(1)
+        err = rows_err.max().item()
+        agreed_err = rows_err[same_picks].max().item() if bool(same_picks.any()) else 0.0
+        if traj.shape != (B, 1, 1, 8) or not bool(torch.isfinite(traj).all()) or not (
+                agreed_err <= TRAJ_ATOL):
+            raise AssertionError(f"language B={B}: {tuple(traj.shape)}, flash vs eager "
+                                 f"{agreed_err} where the FPS picks agree")
+        times = {"flash": [], "eager": []}
+        for i in range(reps):
+            for impl in (("flash", "eager") if i % 2 == 0 else ("eager", "flash")):
+                set_default_attention_impl(impl)
+                times[impl].append(host_ms(predict))
+        set_default_attention_impl("flash")
+        fields = dict(B=B, steps=T, context_tokens=tokens[0], self_attention_tokens=tokens[1],
+                      instruction_tokens=tokens[2], launches=counts,
+                      context_flash_vs_eager_max_abs_err=context_err.item(),
+                      fps_picks_agree=same_picks.tolist(),
+                      flash_vs_eager_from_one_encoding_max_abs_err=denoise_err,
+                      flash_vs_eager_max_abs_err=err,
+                      flash_vs_eager_where_picks_agree_max_abs_err=agreed_err,
+                      flash=summary_ms(times["flash"]), eager=summary_ms(times["eager"]))
+        if B == 1:
+            fields["profile"] = profile(predict, fields["flash"]["p50_ms"])
+        set_default_attention_impl("eager")
+        phase("language", **fields)
+    del model
+    torch.cuda.empty_cache()
+    phase("language_done", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+# --------------------------------------------------------------------------
 # The open-loop app and the paper's two experiments with trained weights
 # --------------------------------------------------------------------------
 
@@ -2852,13 +3415,14 @@ def spatial_memory_one():
     return fields, launches, sorted(PATH_SHAPES)
 
 
-def run_experiments():
+def run_experiments(beside=None):
     """Phases ``task_success`` (one worker process per task) and
     ``spatial_memory`` (a fifth), side by side in spawned workers. Each is
     host-bound (the scene world's render, the samplers' dispatch: the card
     idles ~0.9 of the time), so together they take about the time of the
-    longest; their host times are measured with the others running.
-    Returns each kernel's launches over all five."""
+    longest; their host times are measured with the others running, and
+    with ``beside()``, which this process runs meanwhile. Returns each
+    kernel's launches over all five, and what ``beside`` returned."""
     import concurrent.futures
     import multiprocessing
 
@@ -2869,6 +3433,7 @@ def run_experiments():
             initializer=init_worker, initargs=(workers,)) as pool:
         tasks = [pool.submit(task_success_one, *task) for task in TASK_SUCCESS]
         spatial = pool.submit(spatial_memory_one)
+        beside_result = beside() if beside is not None else None
         for future in tasks:
             row, counts, shapes = future.result()
             add_launches(launches, counts)
@@ -2878,6 +3443,18 @@ def run_experiments():
     add_launches(launches, counts)
     PATH_SHAPES.update(map(tuple, shapes))
     phase("spatial_memory", workers=workers, **fields)
+    return launches, beside_result
+
+
+def run_clip_and_language(work):
+    """Phases ``clip_extractor``, ``clip_loop`` and ``language``, on a
+    seeded random CLIP .npz under ``work``. Returns each kernel's
+    launches."""
+    npz = os.path.join(work, "clip_resnet50_fpn.npz")
+    save_random_clip(npz)
+    measure_clip(npz)
+    launches = run_clip_loop(work, npz)
+    add_launches(launches, run_language())
     return launches
 
 
@@ -2944,8 +3521,12 @@ def main() -> int:
         app_launches, ddp = run_train_app(resident_step_ms, work)
         add_launches(launches, app_launches)
         # The task-success and spatial-memory workers are host-bound: the
-        # torchrun run of phase ddp runs beside them.
-        add_launches(launches, run_experiments())
+        # torchrun run of phase ddp, and in this process the CLIP and
+        # language phases, run beside them.
+        experiment_launches, clip_launches = run_experiments(
+            beside=lambda: run_clip_and_language(work))
+        add_launches(launches, experiment_launches)
+        add_launches(launches, clip_launches)
         add_launches(launches, finish_ddp(ddp))
         npz = os.path.join(work, "radio_v25_b.npz")
         save_random_backbone(npz)

@@ -1,15 +1,17 @@
 """DiffuserActor: 3D denoising-diffusion keypose policy (torch).
 
-Port of the non-language inference path of
-``nvblox_mindmap_tpu/models/diffuser_actor.py``, for every data type
-(``rgbd``, ``mesh``, ``rgbd_and_mesh``):
+Port of ``nvblox_mindmap_tpu/models/diffuser_actor.py``, for every data
+type (``rgbd``, ``mesh``, ``rgbd_and_mesh``), with or without language
+(``use_instruction``, ``lang_enhanced``):
 
 - ``prepare_inputs``: split closedness from the history, optionally make the
   history (and the RGB-D point clouds) relative to the current pose,
   normalize positions, point clouds and vertices to the workspace and
   quaternions to continuous 6D, scale uint8 RGB to [0, 1] on the device;
 - ``DiffuserActor.encode``: image tokens (frozen backbone, ``encode_images``)
-  then mesh-vertex tokens, gripper-history queries, feature-space FPS;
+  then mesh-vertex tokens, with ``use_instruction`` the instruction encoded
+  and the context cross-attending to it, gripper-history queries,
+  feature-space FPS;
 - ``DiffuserActor.denoise``: one ``DiffusionHead`` pass;
 - ``sample_trajectory``: DDPM or DDIM reverse diffusion over the denoiser,
   then unnormalize (and restore the absolute pose in relative mode);
@@ -51,7 +53,6 @@ from nvblox_mindmap_torch.models.normalization import (
 )
 from nvblox_mindmap_torch.ops.schedulers import DiffusionSchedule, make_schedule
 
-LANGUAGE_SLICE = "the language slice (ParallelAttention)"
 DATA_TYPES = ("rgbd", "mesh", "rgbd_and_mesh")
 
 
@@ -69,6 +70,7 @@ class DiffuserActorConfig:
 
     embedding_dim: int = 120
     num_attn_heads: int = 8
+    num_vis_ins_attn_layers: int = 2
     nhist: int = 3
     ngrippers: int = 1
     prediction_horizon: int = 1
@@ -114,10 +116,6 @@ class DiffuserActorConfig:
             )
         object.__setattr__(self, "feature_type", FeatureExtractorType(self.feature_type))
         object.__setattr__(self, "feature_image_size", tuple(self.feature_image_size))
-        if self.use_instruction or self.lang_enhanced:
-            raise NotImplementedError(
-                f"use_instruction / lang_enhanced are added by {LANGUAGE_SLICE}"
-            )
 
     def schedules(self, kind: str = "ddpm") -> Tuple[DiffusionSchedule, DiffusionSchedule]:
         """(position, rotation) noise schedules."""
@@ -156,6 +154,8 @@ class DiffuserActor(nn.Module):
             vertex_feature_dim=cfg.vertex_feature_dim,
             dropout=cfg.encoder_dropout,
             backbone_chunk_images=cfg.backbone_chunk_images,
+            use_instruction=cfg.use_instruction,
+            num_vis_ins_attn_layers=cfg.num_vis_ins_attn_layers,
         )
         self.head = DiffusionHead(
             embedding_dim=cfg.embedding_dim,
@@ -166,6 +166,8 @@ class DiffuserActor(nn.Module):
             predict_head_yaw=cfg.predict_head_yaw,
             diffusion_dropout=cfg.diffusion_dropout,
             predictor_dropout=cfg.predictor_dropout,
+            use_instruction=cfg.use_instruction,
+            lang_enhanced=cfg.lang_enhanced,
         )
         init_as_flax_(self)
         self.to(device)
@@ -183,16 +185,19 @@ class DiffuserActor(nn.Module):
         vertex_features: Optional[torch.Tensor],
         vertices: Optional[torch.Tensor],
         vertices_valid_mask: Optional[torch.Tensor],
+        instruction: Optional[torch.Tensor],
         gripper_history: torch.Tensor,
         curr_closedness: torch.Tensor,
         impl: Optional[str] = None,
     ) -> Dict[str, Any]:
-        """Encode images, mesh and gripper history into fixed denoiser inputs.
+        """Encode images, mesh, instruction and gripper history into fixed
+        denoiser inputs.
 
         Shapes (channel-last): rgb_obs (B, ncam, H, W, 3); pcd_obs likewise;
         pcd_valid_mask (B, ncam, H, W); vertex_features (B, Nv, C); vertices
-        (B, Nv, 3); gripper_history (B, nhist, G, 9); curr_closedness
-        (B, nhist, G, 1). The context is the image tokens, then the mesh's.
+        (B, Nv, 3); instruction (B, T, 512), read with ``use_instruction``;
+        gripper_history (B, nhist, G, 9); curr_closedness (B, nhist, G, 1).
+        The context is the image tokens, then the mesh's.
         """
         cfg = self.config
         parts_feats, parts_pos, parts_mask = [], [], []
@@ -212,6 +217,14 @@ class DiffuserActor(nn.Module):
         context = torch.cat(parts_pos, dim=1)
         context_mask = torch.cat(parts_mask, dim=1)
 
+        instr_feats = None
+        if cfg.use_instruction:
+            if instruction is None:
+                raise ValueError("use_instruction needs an instruction (B, T, 512)")
+            instr_feats, _ = self.encoder.encode_instruction(instruction)
+            context_feats = self.encoder.vision_language_attention(context_feats, instr_feats,
+                                                                   impl=impl)
+
         adaln_gripper_feats, _, gripper_attn_weights = (
             self.encoder.encode_gripper_history(
                 gripper_history, context_feats, context, curr_closedness, impl=impl
@@ -229,6 +242,7 @@ class DiffuserActor(nn.Module):
             "context_feats": context_feats,
             "context": context,
             "context_mask": context_mask,
+            "instr_feats": instr_feats,
             "adaln_gripper_feats": adaln_gripper_feats,
             "fps_feats": fps_feats,
             "fps_pos": fps_pos,
@@ -246,6 +260,7 @@ class DiffuserActor(nn.Module):
             prepared.get("vertex_features"),
             prepared.get("vertices"),
             prepared.get("vertices_valid_mask"),
+            prepared.get("instruction"),
             prepared["gripper_history"],
             prepared["curr_closedness"],
             impl=impl,
@@ -270,6 +285,7 @@ class DiffuserActor(nn.Module):
             fps_feats=fixed_inputs["fps_feats"],
             fps_pos=fixed_inputs["fps_pos"],
             fps_mask=fixed_inputs["fps_mask"],
+            instr_feats=fixed_inputs.get("instr_feats"),
             impl=impl,
         )
 
@@ -287,7 +303,8 @@ def prepare_inputs(
     (B, ncam, H, W, 3, float in [0, 1] or uint8), "pcds" (B, ncam, H, W, 3),
     optional "pcd_valid_mask" (B, ncam, H, W), "vertex_features" (B, Nv, C),
     "vertices" (B, Nv, 3), optional "vertices_valid_mask" (B, Nv); optional
-    "gt_gripper_pred" (B, L, G, 8) and "gt_head_yaw". Returns tensors on
+    "gt_gripper_pred" (B, L, G, 8), "gt_head_yaw" and "instruction"
+    (B, T, 512). Returns tensors on
     ``device`` (default ``cuda``). In relative mode the point clouds move
     with the (single) gripper; mesh vertices stay absolute, as in the JAX
     package and upstream, and the shifted clouds are still bounds-checked
@@ -351,6 +368,7 @@ def prepare_inputs(
             config.quaternion_format,
         )
     out["gt_head_yaw"] = on_device(batch.get("gt_head_yaw"))
+    out["instruction"] = on_device(batch.get("instruction"))
     return out
 
 

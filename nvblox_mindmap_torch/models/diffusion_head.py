@@ -1,8 +1,9 @@
 """Denoising transformer head (torch, batch-first).
 
-Port of the non-language path of ``nvblox_mindmap_tpu/models/diffusion_head.py``:
+Port of ``nvblox_mindmap_tpu/models/diffusion_head.py``:
 
-trajectory tokens -> [+ sinusoidal traj-time PE]
+trajectory tokens -> [cross-attention to the instruction] -> [+ sinusoidal
+traj-time PE]
   -> 2x rotary cross-attention to the full context (AdaLN-conditioned)
   -> 4x self-attention over [trajectory || FPS context]
   -> separate 2-layer rotation / position self-attention heads
@@ -13,6 +14,14 @@ embedding. Empty-context samples fall back to an all-active mask with zeroed
 features so softmax stays finite, branchless as in the JAX package.
 ``diffusion_dropout`` goes to the attention stacks, ``predictor_dropout`` to
 the MLPs' hidden layer, as in the flax module.
+
+Language: with ``use_instruction`` the trajectory tokens first cross-attend
+to the instruction (``traj_lang_attention``, one layer, no feed-forward,
+the traj-time code added to the queries). With ``lang_enhanced`` the self-
+attention stacks become ``FFWRelativeSelfCrossAttentionModule``s (3 cross
+layers among the 4 self layers, 1 among each head's 2) that attend to the
+instruction; as in the JAX module, their self layers then take no key mask,
+and without an instruction they have no cross layers at all.
 """
 from __future__ import annotations
 
@@ -25,6 +34,8 @@ import torch.nn.functional as F
 from nvblox_mindmap_torch.models.layers import (
     FFWRelativeCrossAttentionModule,
     FFWRelativeSelfAttentionModule,
+    FFWRelativeSelfCrossAttentionModule,
+    ParallelAttention,
 )
 from nvblox_mindmap_torch.ops.positional import rotary_pe_3d, sinusoidal_pos_emb
 
@@ -51,31 +62,43 @@ class DiffusionHead(nn.Module):
         predict_head_yaw: bool = False,
         diffusion_dropout: float = 0.0,
         predictor_dropout: float = 0.0,
+        use_instruction: bool = False,
+        lang_enhanced: bool = False,
     ):
         super().__init__()
         E = embedding_dim
         attn_drop, mlp_drop = diffusion_dropout, predictor_dropout
         self.embedding_dim = E
+        self.use_instruction = use_instruction
+        self.lang_enhanced = lang_enhanced
         self.traj_encoder = nn.Linear(9, E)
         self.time_emb_l1 = nn.Linear(E, E)
         self.time_emb_l2 = nn.Linear(E, E)
         self.gripper_hist_l1 = nn.Linear(nhist * ngrippers * E, E)
         self.gripper_hist_l2 = nn.Linear(E, E)
+        if use_instruction:
+            self.traj_lang_attention = ParallelAttention(
+                1, E, num_attn_heads, dropout=attn_drop, self_attention1=False,
+                cross_attention1=True, apply_ffn=False,
+            )
         self.cross_attn = FFWRelativeCrossAttentionModule(
             E, num_attn_heads, num_layers=2, use_adaln=True, dropout=attn_drop
         )
-        self.self_attn = FFWRelativeSelfAttentionModule(
-            E, num_attn_heads, num_layers=4, use_adaln=True, dropout=attn_drop
-        )
+
+        def self_stack(num_layers, num_cross):
+            if lang_enhanced:
+                return FFWRelativeSelfCrossAttentionModule(
+                    E, num_attn_heads, num_layers, num_cross, use_adaln=True,
+                    dropout=attn_drop, with_context=use_instruction)
+            return FFWRelativeSelfAttentionModule(
+                E, num_attn_heads, num_layers=num_layers, use_adaln=True, dropout=attn_drop)
+
+        self.self_attn = self_stack(4, 3)
         self.rotation_proj = nn.Linear(E, E)
-        self.rotation_self_attn = FFWRelativeSelfAttentionModule(
-            E, num_attn_heads, num_layers=2, use_adaln=True, dropout=attn_drop
-        )
+        self.rotation_self_attn = self_stack(2, 1)
         self.rotation_predictor = Mlp(E, E, rotation_dim, mlp_drop)
         self.position_proj = nn.Linear(E, E)
-        self.position_self_attn = FFWRelativeSelfAttentionModule(
-            E, num_attn_heads, num_layers=2, use_adaln=True, dropout=attn_drop
-        )
+        self.position_self_attn = self_stack(2, 1)
         self.position_predictor = Mlp(E, E, 3, mlp_drop)
         self.openness_predictor = Mlp(E, E, 1, mlp_drop)
         self.head_yaw_predictor = (
@@ -103,6 +126,7 @@ class DiffusionHead(nn.Module):
         fps_feats: torch.Tensor,
         fps_pos: torch.Tensor,
         fps_mask: torch.Tensor,
+        instr_feats: Optional[torch.Tensor] = None,
         impl: Optional[str] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
         """Denoise one step.
@@ -113,6 +137,7 @@ class DiffusionHead(nn.Module):
             context_feats/context/context_mask: full context tokens.
             adaln_gripper_feats: (B, nhist*G, E) gripper-history embedding.
             fps_feats/fps_pos/fps_mask: subsampled context tokens.
+            instr_feats: (B, T, E) encoded instruction (language models).
             impl: attention impl (None = the process-wide default).
 
         Returns:
@@ -131,6 +156,9 @@ class DiffusionHead(nn.Module):
         traj_time_pos = sinusoidal_pos_emb(
             torch.arange(n_traj, dtype=torch.float32, device=trajectory.device), E
         )[None]
+        if self.use_instruction and instr_feats is not None:
+            traj_feats = self.traj_lang_attention(traj_feats, instr_feats,
+                                                  seq1_sem_pos=traj_time_pos, impl=impl)
         traj_feats = traj_feats + traj_time_pos
 
         # Branchless empty-sample fallback: all-masked rows become all-active
@@ -164,21 +192,19 @@ class DiffusionHead(nn.Module):
              ~fps_mask],
             dim=1,
         )
-        features = self.self_attn(
-            features, diff_ts=time_embs, query_pos=rel_pos,
-            key_padding_mask=combined_mask, impl=impl,
-        )[-1]
 
-        rot_feats = self.rotation_self_attn(
-            features, diff_ts=time_embs, query_pos=rel_pos,
-            key_padding_mask=combined_mask, impl=impl,
-        )[-1][:, :n_traj]
+        def self_stack(module, x):
+            if self.lang_enhanced:  # no key mask, as in the JAX module
+                return module(x, instr_feats, diff_ts=time_embs, query_pos=rel_pos,
+                              impl=impl)[-1]
+            return module(x, diff_ts=time_embs, query_pos=rel_pos,
+                          key_padding_mask=combined_mask, impl=impl)[-1]
+
+        features = self_stack(self.self_attn, features)
+        rot_feats = self_stack(self.rotation_self_attn, features)[:, :n_traj]
         rotation = self.rotation_predictor(self.rotation_proj(rot_feats))
 
-        pos_feats = self.position_self_attn(
-            features, diff_ts=time_embs, query_pos=rel_pos,
-            key_padding_mask=combined_mask, impl=impl,
-        )[-1][:, :n_traj]
+        pos_feats = self_stack(self.position_self_attn, features)[:, :n_traj]
         pos_feats = self.position_proj(pos_feats)
         position = self.position_predictor(pos_feats)
         openness = self.openness_predictor(pos_feats)

@@ -1,6 +1,6 @@
 """Context encoder for the DiffuserActor policy (torch, batch-first).
 
-Port of the non-language parts of ``nvblox_mindmap_tpu/models/encoder.py``:
+Port of ``nvblox_mindmap_tpu/models/encoder.py``:
 
 - ``encode_images``: frozen backbone features -> linear embed -> bilinear
   position resample -> AND-pooled validity mask.
@@ -12,18 +12,22 @@ Port of the non-language parts of ``nvblox_mindmap_tpu/models/encoder.py``:
   layers) to the full context.
 - ``run_fps``: feature-space farthest point sampling with zeroed invalid
   tokens.
+- ``encode_instruction`` (``instruction_encoder``: (B, T, 512) CLIP text
+  features -> E, with a zero rotary code) and
+  ``vision_language_attention`` (``vl_attention``: the context tokens
+  cross-attend to the instruction, ``num_vis_ins_attn_layers`` layers);
+  both exist only with ``use_instruction``, as flax creates them only when
+  an instruction is encoded.
 
 The backbone is frozen, as the JAX package's ``stop_gradient`` freezes it:
 its parameters have ``requires_grad=False`` and its forward records no
 graph; gradients reach everything after it (``image_feature_encoder``, the
-features FPS gathers). ``backbone_chunk_images`` runs it over the
+features FPS gathers). CLIP's FPN sits after its frozen trunk and trains. ``backbone_chunk_images`` runs it over the
 (B * ncam) images in chunks of that many, a memory lever for large train
 batches. ``dropout`` goes to the gripper-history cross-attention layers.
 
 Which encoders exist follows ``data_type``, so the parameter tree matches
-the flax module's for every data type. The language layers are a later
-slice; ``DiffuserActorConfig`` raises ``NotImplementedError`` naming it.
-"""
+the flax module's for every data type."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -37,10 +41,15 @@ from nvblox_mindmap_torch.models.feature_extractors import (
     make_feature_extractor,
     resize_bilinear,
 )
-from nvblox_mindmap_torch.models.layers import FFWRelativeCrossAttentionModule
+from nvblox_mindmap_torch.models.layers import (
+    FFWRelativeCrossAttentionModule,
+    ParallelAttention,
+)
 from nvblox_mindmap_torch.ops.fps import farthest_point_sampling, gather_points
 from nvblox_mindmap_torch.ops.masks import downscale_mask
 from nvblox_mindmap_torch.ops.positional import rotary_pe_3d
+
+INSTRUCTION_DIM = 512  # CLIP text features, upstream's instruction encoding
 
 
 class Encoder(nn.Module):
@@ -60,6 +69,8 @@ class Encoder(nn.Module):
         vertex_feature_dim: int = 768,
         dropout: float = 0.0,
         backbone_chunk_images: Optional[int] = None,
+        use_instruction: bool = False,
+        num_vis_ins_attn_layers: int = 2,
     ):
         super().__init__()
         self.embedding_dim = embedding_dim
@@ -74,6 +85,8 @@ class Encoder(nn.Module):
                 feature_type, feature_image_size, num_prefix_tokens=feature_num_prefix_tokens
             )
             self.feature_extractor.requires_grad_(False)
+            if feature_type == FeatureExtractorType.CLIP_RESNET50_FPN:
+                self.feature_extractor.fpn.requires_grad_(True)
             self.image_feature_encoder = nn.Linear(get_feature_dim(feature_type), embedding_dim)
         if data_type in ("mesh", "rgbd_and_mesh") and not use_shared_feature_encoder:
             self.reconstruction_encoder = nn.Linear(vertex_feature_dim, embedding_dim)
@@ -89,6 +102,12 @@ class Encoder(nn.Module):
         )
         # Unused on the keypose path, but part of every checkpoint.
         self.goal_gripper_embed = nn.Parameter(torch.randn(1, embedding_dim))
+        if use_instruction:
+            self.instruction_encoder = nn.Linear(INSTRUCTION_DIM, embedding_dim)
+            self.vl_attention = ParallelAttention(
+                num_vis_ins_attn_layers, embedding_dim, num_attn_heads, dropout=dropout,
+                self_attention1=False, cross_attention1=True,
+            )
 
     def relative_pe(self, xyz: torch.Tensor) -> torch.Tensor:
         """Rotary 3D code for (B, N, 3) positions -> (B, N, F, 2)."""
@@ -172,6 +191,18 @@ class Encoder(nn.Module):
             queries, context_feats, query_pos=gripper_pos, value_pos=context_pos, impl=impl
         )
         return outputs[-1], gripper_pos, weights[-1]
+
+    def encode_instruction(self, instruction: torch.Tensor):
+        """(B, T, 512) CLIP text features -> (B, T, E) + a zero rotary code."""
+        instr_feats = self.instruction_encoder(instruction.to(torch.float32))
+        dummy_pos = self.relative_pe(torch.zeros(instruction.shape[:2] + (3,),
+                                                 device=instruction.device))
+        return instr_feats, dummy_pos
+
+    def vision_language_attention(self, feats: torch.Tensor, instr_feats: torch.Tensor,
+                                  impl: Optional[str] = None) -> torch.Tensor:
+        """The context tokens (B, N, E) cross-attend to the instruction."""
+        return self.vl_attention(feats, instr_feats, impl=impl)
 
     def run_fps(
         self,

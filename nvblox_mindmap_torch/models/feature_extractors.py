@@ -5,7 +5,8 @@ Port of ``nvblox_mindmap_tpu/models/feature_extractors.py``:
 - ``RGB``: passthrough, bilinear resize to the feature size (3-d).
 - ``RADIO_V25_B``: ViT-B/16-style backbone, 768-d patch features.
 - ``DINO_V2_VITS14``: ViT-S/14, 384-d patch features.
-- ``CLIP_RESNET50_FPN``: not ported yet; ``make_feature_extractor`` raises.
+- ``CLIP_RESNET50_FPN``: CLIP's ResNet-50 trunk (frozen) with a trainable
+  FPN, 120-d res3 features (``models/clip_resnet_fpn.py``).
 
 Every extractor takes channel-last RGB in [0, 1] of shape (B, H, W, 3) and
 returns a (B, h, w, C) fp32 feature image.
@@ -67,9 +68,6 @@ DEFAULT_PREFIX_TOKENS = {
     FeatureExtractorType.RADIO_V25_B: 1,
     FeatureExtractorType.DINO_V2_VITS14: 1,
 }
-
-CLIP_SLICE = "the slice that ports models/clip_resnet_fpn.py"
-
 
 def get_feature_dim(t: FeatureExtractorType) -> int:
     return FEATURE_DIMS[FeatureExtractorType(t)]
@@ -225,7 +223,10 @@ def make_feature_extractor(
     if t == FeatureExtractorType.RGB:
         return RgbFeatureExtractor(feature_image_size=feature_image_size)
     if t == FeatureExtractorType.CLIP_RESNET50_FPN:
-        raise NotImplementedError(f"the {t.value!r} extractor is added by {CLIP_SLICE}")
+        # CLIP's own normalization, whatever the checkpoint carries.
+        from nvblox_mindmap_torch.models.clip_resnet_fpn import ClipResNet50Fpn
+
+        return ClipResNet50Fpn(feature_image_size=feature_image_size)
     if num_prefix_tokens is None:
         num_prefix_tokens = DEFAULT_PREFIX_TOKENS.get(t, 0)
     if t == FeatureExtractorType.RADIO_V25_B:

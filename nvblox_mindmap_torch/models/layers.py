@@ -1,7 +1,6 @@
 """Transformer building blocks (torch ``nn.Module``s), batch-first.
 
-Port of the parts of ``nvblox_mindmap_tpu/models/layers.py`` that the
-non-language keypose path uses:
+Port of ``nvblox_mindmap_tpu/models/layers.py``:
 
 - ``MultiheadAttention``: q/k/v/out projections around
   ``ops.attention.multi_head_attention``; rotary codes at full width.
@@ -11,12 +10,19 @@ non-language keypose path uses:
   optional AdaLN on the query and rotary relative position codes.
 - ``FFWRelative{Cross,Self}AttentionModule``: stacks of (attention,
   feed-forward) pairs that return the per-layer outputs.
+- The language layers: ``FFWRelativeSelfCrossAttentionModule`` (self
+  layers with cross-attention layers to a context interleaved at
+  ``linspace(0, n_self, n_cross + 1)``; the self layers take no key mask,
+  and the cross layers drop the rotary codes when the context has none),
+  ``ParallelAttentionLayer`` / ``ParallelAttention`` (post-norm
+  cross-attention from one sequence to another, an optional feed-forward).
+  Flax creates a module's parameters only when it is called, so a module
+  here is built only where the flax module runs: the interleaved cross
+  layers only with a context (``with_context``).
 
 Parity notes: flax's ``LayerNorm`` uses eps 1e-6 (torch's default is 1e-5),
 and ``models/weights.py`` transposes flax's (in, out) Dense kernels into
 ``nn.Linear``. Masks are exclusion masks (True = ignore key).
-``ParallelAttention`` and ``FFWRelativeSelfCrossAttentionModule`` serve the
-language paths and are not ported yet.
 
 Training: ``dropout`` sits where the flax modules have ``nn.Dropout`` (after
 the attention output and after each feed-forward projection; 0.0 by
@@ -31,6 +37,7 @@ from __future__ import annotations
 import math
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
@@ -234,18 +241,165 @@ class FFWRelativeSelfAttentionModule(FFWRelativeCrossAttentionModule):
                            impl)[0]
 
 
+class FFWRelativeSelfCrossAttentionModule(nn.Module):
+    """Self-attention layers with cross-attention layers to a context
+    interleaved at evenly spaced indices; both share the AdaLN timestep
+    conditioning. Flax names: ``self_{i}``, ``cross_{i}``, ``ffw_{i}``.
+
+    The cross layers exist only ``with_context`` (the flax module creates
+    them only when it is called with one); the self layers attend without a
+    key mask.
+    """
+
+    def __init__(self, embedding_dim: int, num_attn_heads: int, num_self_attn_layers: int,
+                 num_cross_attn_layers: int, use_adaln: bool = True, dropout: float = 0.0,
+                 with_context: bool = True):
+        super().__init__()
+        self.checkpoint_layers = False
+        self.num_self_attn_layers = num_self_attn_layers
+        self.with_context = with_context
+        inds = np.linspace(0, num_self_attn_layers, num_cross_attn_layers + 1, dtype=np.int32)
+        self.cross_inds = ({int(i) for i in inds if i < num_self_attn_layers}
+                           if with_context else set())
+
+        def layer():
+            return RelativeCrossAttentionLayer(embedding_dim, num_attn_heads, use_adaln, dropout)
+
+        for i in range(num_self_attn_layers):
+            if i in self.cross_inds:
+                self.add_module(f"cross_{i}", layer())
+            self.add_module(f"self_{i}", layer())
+        self.ffw = nn.ModuleList(
+            FeedforwardLayer(embedding_dim, embedding_dim, use_adaln, dropout)
+            for _ in range(num_self_attn_layers)
+        )
+
+    def _layer(self, i, query, context, diff_ts, query_pos, context_pos, key_padding_mask,
+               impl):
+        if i in self.cross_inds and context is not None:
+            cur_query_pos = None if context_pos is None else query_pos
+            query, _ = getattr(self, f"cross_{i}")(query, context, diff_ts, cur_query_pos,
+                                                   context_pos, key_padding_mask, impl)
+        query, _ = getattr(self, f"self_{i}")(query, query, diff_ts, query_pos, query_pos,
+                                              None, impl)
+        return self.ffw[i](query, diff_ts)
+
+    def forward(
+        self,
+        query: torch.Tensor,
+        context: Optional[torch.Tensor],
+        diff_ts: Optional[torch.Tensor] = None,
+        query_pos: Optional[torch.Tensor] = None,
+        context_pos: Optional[torch.Tensor] = None,
+        key_padding_mask: Optional[torch.Tensor] = None,
+        impl: Optional[str] = None,
+    ) -> List[torch.Tensor]:
+        if context is not None and not self.with_context:
+            raise ValueError("this module was built without a context (with_context=False)")
+        outputs = []
+        for i in range(self.num_self_attn_layers):
+            args = (i, query, context, diff_ts, query_pos, context_pos, key_padding_mask, impl)
+            if self.checkpoint_layers and torch.is_grad_enabled():
+                query = checkpoint(self._layer, *args, use_reentrant=False)
+            else:
+                query = self._layer(*args)
+            outputs.append(query)
+        return outputs
+
+
+class ParallelAttentionLayer(nn.Module):
+    """Post-norm cross-attention from ``seq1`` to ``seq2`` (``cross_12``,
+    ``norm_12``), optional self-attention of ``seq1`` (``sa1``,
+    ``norm_1``), and a feed-forward (``ffn_1`` / ``ffn_2``, ``norm_122``):
+    the configurations upstream instantiates (vision -> language,
+    trajectory -> language). Semantic positions are added to the queries
+    and keys, not the values."""
+
+    def __init__(self, d_model: int, n_heads: int, dropout: float = 0.0,
+                 self_attention1: bool = False, cross_attention1: bool = True,
+                 apply_ffn: bool = True):
+        super().__init__()
+        self.dropout = nn.Dropout(dropout)
+        if cross_attention1:
+            self.cross_12 = MultiheadAttention(d_model, n_heads)
+            self.norm_12 = layer_norm(d_model)
+        if self_attention1:
+            self.sa1 = MultiheadAttention(d_model, n_heads)
+            self.norm_1 = layer_norm(d_model)
+        self.apply_ffn = apply_ffn and (cross_attention1 or self_attention1)
+        if self.apply_ffn:
+            self.ffn_1 = nn.Linear(d_model, 4 * d_model)
+            self.ffn_2 = nn.Linear(4 * d_model, d_model)
+            self.norm_122 = layer_norm(d_model)
+
+    def forward(
+        self,
+        seq1: torch.Tensor,
+        seq2: torch.Tensor,
+        seq1_key_padding_mask: Optional[torch.Tensor] = None,
+        seq2_key_padding_mask: Optional[torch.Tensor] = None,
+        seq1_sem_pos: Optional[torch.Tensor] = None,
+        seq2_sem_pos: Optional[torch.Tensor] = None,
+        impl: Optional[str] = None,
+    ) -> torch.Tensor:
+        def with_pos(x, pos):
+            return x if pos is None else x + pos
+
+        if hasattr(self, "cross_12"):
+            attn_out, _ = self.cross_12(with_pos(seq1, seq1_sem_pos),
+                                        with_pos(seq2, seq2_sem_pos), seq2,
+                                        key_padding_mask=seq2_key_padding_mask, impl=impl)
+            seq1 = self.norm_12(seq1 + self.dropout(attn_out))
+        if hasattr(self, "sa1"):
+            q1 = with_pos(seq1, seq1_sem_pos)
+            attn_out, _ = self.sa1(q1, q1, seq1, key_padding_mask=seq1_key_padding_mask,
+                                   impl=impl)
+            seq1 = self.norm_1(seq1 + self.dropout(attn_out))
+        if self.apply_ffn:
+            h = self.dropout(self.ffn_2(self.dropout(F.relu(self.ffn_1(seq1)))))
+            seq1 = self.norm_122(seq1 + h)
+        return seq1
+
+
+class ParallelAttention(nn.Module):
+    """``num_layers`` ``ParallelAttentionLayer``s (flax names ``layer_{i}``)."""
+
+    def __init__(self, num_layers: int, d_model: int, n_heads: int, dropout: float = 0.0,
+                 self_attention1: bool = False, cross_attention1: bool = True,
+                 apply_ffn: bool = True):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", ParallelAttentionLayer(
+                d_model, n_heads, dropout, self_attention1, cross_attention1, apply_ffn))
+
+    def forward(self, seq1: torch.Tensor, seq2: torch.Tensor,
+                seq1_key_padding_mask: Optional[torch.Tensor] = None,
+                seq2_key_padding_mask: Optional[torch.Tensor] = None,
+                seq1_sem_pos: Optional[torch.Tensor] = None,
+                seq2_sem_pos: Optional[torch.Tensor] = None,
+                impl: Optional[str] = None) -> torch.Tensor:
+        for i in range(self.num_layers):
+            seq1 = getattr(self, f"layer_{i}")(seq1, seq2, seq1_key_padding_mask,
+                                               seq2_key_padding_mask, seq1_sem_pos,
+                                               seq2_sem_pos, impl)
+        return seq1
+
+
 def set_layer_checkpointing(model: nn.Module, enabled: bool) -> None:
     """Run every attention stack of ``model`` layer by layer under
     ``torch.utils.checkpoint`` (``enabled``) or keep every activation."""
     for module in model.modules():
-        if isinstance(module, FFWRelativeCrossAttentionModule):
+        if isinstance(module, (FFWRelativeCrossAttentionModule,
+                               FFWRelativeSelfCrossAttentionModule)):
             module.checkpoint_layers = enabled
 
 
 def init_as_flax_(model: nn.Module) -> nn.Module:
     """Initialize ``model``'s layers as the JAX package's flax modules do
     (in place): lecun-normal kernels and zero biases for every ``nn.Linear``
-    and ``nn.Conv2d`` (flax's ``Dense`` / ``Conv`` defaults), then
+    and ``nn.Conv2d`` (flax's ``Dense`` / ``Conv`` defaults; CLIP's trunk
+    convolutions have no bias), then
     xavier-uniform kernels for the attention projections and feed-forward
     layers, and zeros for AdaLN's modulation. LayerNorms keep ones and
     zeros; the modules' own ``nn.Parameter``s carry their flax initialisers
@@ -255,7 +409,8 @@ def init_as_flax_(model: nn.Module) -> nn.Module:
         for module in model.modules():
             if isinstance(module, (nn.Linear, nn.Conv2d)):
                 lecun_normal_(module.weight)
-                nn.init.zeros_(module.bias)
+                if module.bias is not None:
+                    nn.init.zeros_(module.bias)
         for module in model.modules():
             if isinstance(module, MultiheadAttention):
                 for linear in (module.q_proj, module.k_proj, module.v_proj, module.out_proj):

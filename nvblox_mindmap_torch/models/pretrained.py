@@ -17,10 +17,16 @@ the flax-layout ViT tree, optionally with the input normalization
   image at the integration resolution; ``backbone_feature_fn`` wraps a
   backbone module already built.
 
-CLIP checkpoints wait for the CLIP extractor.
+A CLIP checkpoint holds the frozen trunk under ``backbone`` and, once a
+policy has trained one (``scripts/extract_fpn_from_model``), the FPN under
+``fpn``. Without ``fpn``, ``build_backbone`` initializes a fresh FPN and
+warns, and ``load_backbone_into_model`` loads the trunk only, leaving the
+model's FPN to train (upstream trains the FPN when no ``fpn_path`` is
+given).
 """
 from __future__ import annotations
 
+import logging
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -33,8 +39,11 @@ from nvblox_mindmap_torch.models.feature_extractors import (
     make_feature_extractor,
     resize_bilinear,
 )
+from nvblox_mindmap_torch.models.layers import init_as_flax_
 from nvblox_mindmap_torch.models.weight_conversion import load_variables_npz
 from nvblox_mindmap_torch.models.weights import load_flax_params
+
+logger = logging.getLogger(__name__)
 
 
 def require_backbone_weights(
@@ -82,6 +91,13 @@ def _num_prefix_tokens_from(params: Dict) -> Optional[int]:
     return 0 if "pos_embed" in params else None
 
 
+def _clip_trunk(params: Dict) -> Dict:
+    """The trunk's tree in a CLIP checkpoint's params (the converter may
+    wrap it in one more ``params``)."""
+    trunk = params.get("backbone", params)
+    return trunk["params"] if "params" in trunk else trunk
+
+
 def build_backbone(
     feature_type: FeatureExtractorType,
     backbone_weights: Optional[str] = None,
@@ -93,6 +109,9 @@ def build_backbone(
 
     A ViT takes its weights, input normalization and CLS/register token
     count from the converted checkpoint; the RGB extractor has no weights.
+    CLIP takes its trunk, and its FPN where the checkpoint has one; else the
+    FPN is freshly initialized (flax's initialisers, torch's generator) and
+    a warning says so.
     """
     device = resolve_device(device)
     feature_type = FeatureExtractorType(feature_type)
@@ -100,6 +119,22 @@ def build_backbone(
         return make_feature_extractor(feature_type, feature_image_size).to(device)
     require_backbone_weights(feature_type, backbone_weights, "build_backbone")
     loaded = load_backbone_npz(backbone_weights)
+    if feature_type == FeatureExtractorType.CLIP_RESNET50_FPN:
+        module = init_as_flax_(make_feature_extractor(feature_type, feature_image_size))
+        load_flax_params(module.backbone, _clip_trunk(loaded["params"]))
+        if "fpn" in loaded["params"]:
+            load_flax_params(module.fpn, loaded["params"]["fpn"])
+        else:
+            # For a mapping / datagen export a random neck means the 120-d
+            # features written to disk are a random projection of the trunk.
+            logger.warning(
+                "CLIP checkpoint %r has no 'fpn' subtree: the FPN neck is freshly "
+                "initialized, so extracted 120-d features are a random projection of "
+                "the frozen trunk. This matches upstream's training semantics (the "
+                "FPN trains when no fpn_path is given), but a mapping / datagen export "
+                "likely wants a trained FPN: extract one with "
+                "scripts/extract_fpn_from_model.", backbone_weights)
+        return module.to(device)
     module = make_feature_extractor(
         feature_type,
         feature_image_size=feature_image_size,
@@ -118,11 +153,17 @@ def load_backbone_into_model(
     """Load converted weights into ``model.encoder.feature_extractor`` (in place).
 
     Loading is strict; a checkpoint whose CLS/register token count differs
-    from the model's raises and names the config field to change.
+    from the model's raises and names the config field to change. For CLIP
+    only the trunk is replaced, and the FPN where the checkpoint has one.
     """
     loaded = load_backbone_npz(backbone_weights)
     pretrained = loaded["params"]
     extractor = model.encoder.feature_extractor
+    if FeatureExtractorType(feature_type) == FeatureExtractorType.CLIP_RESNET50_FPN:
+        load_flax_params(extractor.backbone, _clip_trunk(pretrained))
+        if "fpn" in pretrained:
+            load_flax_params(extractor.fpn, pretrained["fpn"])
+        return
     ckpt_n = _num_prefix_tokens_from(pretrained) or 0
     model_n = getattr(extractor, "num_prefix_tokens", 0)
     if ckpt_n != model_n:
@@ -169,8 +210,8 @@ def make_feature_fn(
 
     The mapper integrates features at ``output_size`` (upstream 512x512).
     RGB needs no weights: the image itself, resized. Every other type needs
-    a converted checkpoint and runs its ViT at ``feature_image_size``
-    patches, then upscales.
+    a converted checkpoint and runs its backbone at ``feature_image_size``
+    (ViT patches, or CLIP's res3 grid), then upscales bilinearly.
     """
     device = resolve_device(device)
     feature_type = FeatureExtractorType(feature_type)

@@ -19,7 +19,10 @@ packages. ``models/weights.py`` maps the tree onto the port's modules and
   JAX package's mmap reader is left out until a committed checkpoint shows
   a load time worth it) / ``graft_subtree``.
 
-CLIP's ResNet converter waits for the slice that ports the CLIP extractor.
+- ``convert_clip_resnet_weights``: CLIP's ModifiedResNet visual state dict
+  (with or without the ``visual.`` prefix; the attention-pool head is
+  skipped) onto ``ModifiedResNetFeatures``' tree, the BatchNorms' running
+  statistics included.
 """
 from __future__ import annotations
 
@@ -227,6 +230,48 @@ def convert_radio_vit_weights(
         )
     out["params"] = params
     return out
+
+
+def _conv(w: np.ndarray) -> Dict[str, np.ndarray]:
+    return {"kernel": np.asarray(w).transpose(2, 3, 1, 0)}
+
+
+def _batchnorm(prefix: str, sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """torch BatchNorm2d -> FrozenBatchNorm params (running stats included)."""
+    return {
+        "scale": np.asarray(sd[prefix + ".weight"]),
+        "bias": np.asarray(sd[prefix + ".bias"]),
+        "mean": np.asarray(sd[prefix + ".running_mean"]),
+        "var": np.asarray(sd[prefix + ".running_var"]),
+    }
+
+
+def convert_clip_resnet_weights(state_dict: Dict[str, np.ndarray], layers=(3, 4, 6, 3)) -> Dict:
+    """Map CLIP's ModifiedResNet visual state dict onto ModifiedResNetFeatures.
+
+    Keys may carry the ``visual.`` prefix of the full CLIP checkpoint; the
+    attention-pool head is not read (the extractor taps the intermediate
+    feature maps only). Returns ``{"params": trunk}``, the tree of the
+    ``backbone`` submodule of ClipResNet50Fpn.
+    """
+    sd = {(k[len("visual."):] if k.startswith("visual.") else k): v
+          for k, v in state_dict.items()}
+    params: Dict = {}
+    for i in (1, 2, 3):
+        params[f"conv{i}"] = _conv(sd[f"conv{i}.weight"])
+        params[f"bn{i}"] = _batchnorm(f"bn{i}", sd)
+    for stage, blocks in enumerate(layers):
+        for b in range(blocks):
+            t = f"layer{stage + 1}.{b}"
+            block: Dict = {}
+            for j in (1, 2, 3):
+                block[f"conv{j}"] = _conv(sd[f"{t}.conv{j}.weight"])
+                block[f"bn{j}"] = _batchnorm(f"{t}.bn{j}", sd)
+            if f"{t}.downsample.0.weight" in sd:
+                block["downsample_conv"] = _conv(sd[f"{t}.downsample.0.weight"])
+                block["downsample_bn"] = _batchnorm(f"{t}.downsample.1", sd)
+            params[f"layer{stage + 1}_{b}"] = block
+    return {"params": params}
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):

@@ -20,10 +20,16 @@ The input is the nested dict of numpy arrays that
   flattened; ``pos_embed``, ``prefix_tokens`` and the LayerScale gammas are
   taken as they are.
 
+- CLIP's ``FrozenBatchNorm`` leaves ``scale`` / ``bias`` / ``mean`` /
+  ``var`` become its ``weight`` / ``bias`` / ``mean`` / ``var``; its
+  ``Conv`` kernels are (kh, kw, in, out) like the ViT's.
+
 Loading is strict: a key left over on either side, or a shape that differs,
 raises. ``flax_paths`` runs the naming the other way: each of a model's
 parameters to its path in the flax tree (the optimizer's weight-decay mask
-is a rule on flax names).
+is a rule on flax names). ``state_dict_to_flax`` runs the whole bridge the
+other way, from the names and shapes of a state_dict alone (a port
+checkpoint's parameters as the JAX package's tree).
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from nvblox_mindmap_torch.models.clip_resnet_fpn import FrozenBatchNorm
 
 AUTO_NAMES = {
     "MultiheadAttention_0": "attention",
@@ -115,17 +123,65 @@ def flax_paths(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
         parent, _, leaf = name.rpartition(".")
         module = modules[parent]
         parts = parent.split(".") if parent else []
-        if isinstance(module, nn.LayerNorm) and leaf == "weight":
+        if isinstance(module, (nn.LayerNorm, FrozenBatchNorm)) and leaf == "weight":
             leaf = "scale"
         elif isinstance(module, (nn.Linear, nn.Conv2d)) and leaf == "weight":
             leaf = "kernel"
         elif isinstance(module, nn.ParameterList):  # ls1.{i} -> leaf ls1_{i}
             parts, leaf = parts[:-1], f"{parts[-1]}_{leaf}"
-        path = []
-        for part in parts:
-            if part.isdigit() and path and _STACKED.match(f"{path[-1]}_{part}"):
-                path[-1] = f"{path[-1]}_{part}"
-            else:
-                path.append(_FLAX_AUTO_NAMES.get(part, part))
-        paths[name] = tuple(path) + (leaf,)
+        paths[name] = _flax_modules(parts) + (leaf,)
     return paths
+
+
+def _flax_modules(parts) -> Tuple[str, ...]:
+    """The flax module path of a torch module path (split at its dots)."""
+    path = []
+    for part in parts:
+        if part.isdigit() and path and _STACKED.match(f"{path[-1]}_{part}"):
+            path[-1] = f"{path[-1]}_{part}"
+        else:
+            path.append(_FLAX_AUTO_NAMES.get(part, part))
+    return tuple(path)
+
+
+# Both ViTs of the registry (RADIO-B/16: 768 / 12 heads, DINOv2-S/14: 384 /
+# 6) have head dim 64; their DenseGeneral kernels are (E, H, 64) / (H, 64, E).
+VIT_HEAD_DIM = 64
+_VIT_ATTENTION = re.compile(r"^attn_\d+$")
+
+
+def state_dict_to_flax(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """The flax parameter tree (nested dicts of numpy arrays) of a port
+    ``state_dict``: ``flax_to_state_dict``'s inverse. A 1-D ``weight`` is a
+    norm's ``scale``, a 2-D one a ``Dense`` kernel (transposed back), a 4-D
+    one a ``Conv`` kernel (back to (kh, kw, in, out)); the ViT's attention
+    projections become ``DenseGeneral`` kernels of head dim 64."""
+    tree: Dict[str, Any] = {}
+    for name, value in state_dict.items():
+        array = (value.detach().cpu().numpy() if isinstance(value, torch.Tensor)
+                 else np.asarray(value))
+        *parts, leaf = name.split(".")
+        path = list(_flax_modules(parts))
+        if leaf.isdigit():  # a ParameterList entry: ls1.{i} -> leaf ls1_{i}
+            leaf = f"{path.pop()}_{leaf}"
+        parent = path[-1] if path else ""
+        vit_attention = (parent in ("query", "key", "value", "out") and len(path) > 1
+                         and _VIT_ATTENTION.match(path[-2]) is not None)
+        if leaf == "weight":
+            if array.ndim == 1:
+                leaf = "scale"
+            elif array.ndim == 4:
+                leaf, array = "kernel", array.transpose(2, 3, 1, 0)
+            elif vit_attention and parent == "out":  # (E, H*D) -> (H, D, E)
+                leaf, array = "kernel", array.T.reshape(-1, VIT_HEAD_DIM, array.shape[0])
+            elif vit_attention:  # (H*D, E) -> (E, H, D)
+                leaf, array = "kernel", array.T.reshape(array.shape[1], -1, VIT_HEAD_DIM)
+            else:
+                leaf, array = "kernel", array.T
+        elif leaf == "bias" and vit_attention and parent != "out":
+            array = array.reshape(-1, VIT_HEAD_DIM)
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(array)
+    return tree

@@ -14,7 +14,10 @@ pickle of plain values whose ``params`` field holds the flax parameter tree
 in flax's msgpack encoding. A small msgpack decoder here reads it (neither
 flax nor the ``msgpack`` package is needed) and returns the nested dict of
 numpy arrays that ``flax.serialization.msgpack_restore`` returns, ready for
-``models.weights.load_flax_params``. ``read_jax_opt_state`` reads its
+``models.weights.load_flax_params``; ``msgpack_serialize`` writes the bytes
+that ``flax.serialization.msgpack_serialize`` writes for such a tree.
+``read_params_tree`` gives the flax tree of either package's checkpoint
+file (the port's through ``models.weights.state_dict_to_flax``). ``read_jax_opt_state`` reads its
 ``opt_state`` field, a pickle of optax's state objects, without optax: a
 restricted unpickler maps each optax state class onto a plain stand-in of
 the same fields (``ScaleByAdamState``, ``ScaleByScheduleState``,
@@ -109,6 +112,15 @@ def read_jax_checkpoint(path: str) -> Tuple[Dict[str, Any], int, Optional[float]
     with open(path, "rb") as f:
         payload = pickle.load(f)
     return msgpack_restore(payload["params"]), payload["iter"], payload["best_loss"]
+
+
+def read_params_tree(path: str) -> Dict[str, Any]:
+    """The flax parameter tree of a checkpoint file of either package."""
+    if is_jax_checkpoint(path):
+        return read_jax_checkpoint(path)[0]
+    from nvblox_mindmap_torch.models.weights import state_dict_to_flax
+
+    return state_dict_to_flax(load_checkpoint_file(path)["state_dict"])
 
 
 # Plain stand-ins for optax's state classes (NamedTuples in optax, pickled
@@ -258,3 +270,91 @@ def _unchunk(tree: Any) -> Any:
 def msgpack_restore(encoded: bytes) -> Any:
     """What ``flax.serialization.msgpack_restore`` returns for ``encoded``."""
     return _unchunk(_unpack(encoded))
+
+
+def _encode(obj: Any, out: bytearray) -> None:
+    """msgpack, as the ``msgpack`` package packs with ``use_bin_type`` and
+    flax's ext hook (arrays: ext 1, numpy scalars: ext 3)."""
+    if obj is None:
+        out.append(0xC0)
+    elif isinstance(obj, bool):
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):
+        if 0 <= obj < 0x80:
+            out.append(obj)
+        elif -32 <= obj < 0:
+            out.append(obj + 0x100)
+        elif obj >= 0:
+            for code, fmt, top in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                                   (0xCE, ">I", 0xFFFFFFFF), (0xCF, ">Q", 2 ** 64 - 1)):
+                if obj <= top:
+                    out += bytes([code]) + struct.pack(fmt, obj)
+                    break
+        else:
+            for code, fmt, low in ((0xD0, ">b", -2 ** 7), (0xD1, ">h", -2 ** 15),
+                                   (0xD2, ">i", -2 ** 31), (0xD3, ">q", -2 ** 63)):
+                if obj >= low:
+                    out += bytes([code]) + struct.pack(fmt, obj)
+                    break
+    elif isinstance(obj, float):
+        out += b"\xcb" + struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        data = obj.encode()
+        _header(out, len(data), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out += data
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        data = bytes(obj)
+        _header(out, len(data), None, 0, (0xC4, 0xC5, 0xC6))
+        out += data
+    elif isinstance(obj, (list, tuple)):
+        _header(out, len(obj), 0x90, 16, (None, 0xDC, 0xDD))
+        for item in obj:
+            _encode(item, out)
+    elif isinstance(obj, dict):
+        _header(out, len(obj), 0x80, 16, (None, 0xDE, 0xDF))
+        for key in sorted(obj):  # flax copies the tree with jax's sorted keys
+            _encode(key, out)
+            _encode(obj[key], out)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        array = np.asarray(obj)
+        if array.dtype.hasobject or array.dtype.isalignedstruct:
+            raise ValueError("object and structured dtypes are not serialized")
+        if array.nbytes > 2 ** 30:
+            raise NotImplementedError("arrays over 1 GiB (flax's chunked form) are not written")
+        payload = bytearray()
+        _encode((array.shape, array.dtype.name, array.tobytes("C")), payload)
+        _encode_ext(out, _EXT_NDARRAY if isinstance(obj, np.ndarray) else _EXT_NPSCALAR,
+                    payload)
+    else:
+        raise TypeError(f"msgpack: cannot serialize {type(obj).__name__}")
+
+
+def _header(out: bytearray, n: int, fix: Optional[int], fix_limit: int, codes) -> None:
+    """A length header: the fix form below ``fix_limit``, else 8 / 16 / 32 bits."""
+    if fix is not None and n < fix_limit:
+        out.append(fix | n)
+        return
+    for code, fmt, top in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= top:
+            out += bytes([code]) + struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack: length {n} is too large")
+
+
+def _encode_ext(out: bytearray, code: int, payload: bytes) -> None:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(payload) in fixed:
+        out.append(fixed[len(payload)])
+    else:
+        _header(out, len(payload), None, 0, (0xC7, 0xC8, 0xC9))
+    out.append(code)
+    out += payload
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """What ``flax.serialization.msgpack_serialize`` writes for ``tree``
+    (nested dicts of numpy arrays and Python values; dict keys sorted, as
+    flax's copy of the tree sorts them)."""
+    out = bytearray()
+    _encode(tree, out)
+    return bytes(out)

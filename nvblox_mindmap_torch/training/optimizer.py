@@ -198,36 +198,47 @@ class Optimizer:
         ``adamw`` with a decay mask, the frozen-backbone ``masked``
         ``set_to_zero``, and ``MultiSteps`` around both when accumulating),
         as ``read_jax_opt_state`` gives it."""
-        multi = state if type(state).__name__ == "MultiStepsState" else None
-        if (multi is not None) != (self.accumulate_grad_batches > 1):
-            raise ValueError(f"a {'MultiSteps' if multi is not None else 'plain'} optax "
-                             f"state for accumulate_grad_batches="
-                             f"{self.accumulate_grad_batches}")
-        adam = _find_state(state if multi is None else multi.inner_opt_state,
-                           "ScaleByAdamState")
-        if adam is None:
-            raise ValueError("the optax state holds no ScaleByAdamState")
-        schedule = _find_state(state if multi is None else multi.inner_opt_state,
-                               "ScaleByScheduleState")
-        count = int(adam.count)
-        if schedule is not None and int(schedule.count) != count:
-            raise ValueError(f"optax counts differ: adam {count}, schedule "
-                             f"{int(schedule.count)}")
-        mu, nu = flax_to_state_dict(adam.mu), flax_to_state_dict(adam.nu)
-        for name, p in zip(self.names, self.params):
-            if mu[name].shape != p.shape:
-                raise ValueError(f"{name}: optax moment {tuple(mu[name].shape)} != "
-                                 f"parameter {tuple(p.shape)}")
-            self.adamw.state[p] = {
-                "step": torch.tensor(float(count), dtype=torch.float32),
-                "exp_avg": mu[name].to(p.device, p.dtype),
-                "exp_avg_sq": nu[name].to(p.device, p.dtype),
-            }
-        self.count = count
-        if multi is not None:
-            self.mini_step = int(multi.mini_step)
-            acc = flax_to_state_dict(multi.acc_grads)
-            self._acc = [acc[n].to(p.device, p.dtype) for n, p in zip(self.names, self.params)]
+        tensors = self.tensor_state()
+        fill_tensor_state_from_optax(tensors, state)
+        self.load_tensor_state(tensors)
+
+
+def fill_tensor_state_from_optax(tensors: Dict[str, Any], state: Any) -> None:
+    """Write an optax state (a tree of ``training.checkpoint.OPTAX_STATES``
+    stand-ins) into an ``Optimizer.tensor_state()`` in place: the Adam
+    moments by parameter name through the weight bridge, the update count
+    (the schedule's step and Adam's bias correction), and ``MultiSteps``'
+    pending micro-steps and running mean. Raises on a state of another
+    chain or other parameters."""
+    multi = state if type(state).__name__ == "MultiStepsState" else None
+    if (multi is not None) != ("acc" in tensors):
+        raise ValueError(f"a {'MultiSteps' if multi is not None else 'plain'} optax "
+                         f"state for an optimizer {'with' if 'acc' in tensors else 'without'} "
+                         "gradient accumulation")
+    chain = state if multi is None else multi.inner_opt_state
+    adam = _find_state(chain, "ScaleByAdamState")
+    if adam is None:
+        raise ValueError("the optax state holds no ScaleByAdamState")
+    schedule = _find_state(chain, "ScaleByScheduleState")
+    count = int(adam.count)
+    if schedule is not None and int(schedule.count) != count:
+        raise ValueError(f"optax counts differ: adam {count}, schedule "
+                         f"{int(schedule.count)}")
+    moments = {"exp_avg": flax_to_state_dict(adam.mu),
+               "exp_avg_sq": flax_to_state_dict(adam.nu)}
+    if multi is not None:
+        moments["acc"] = flax_to_state_dict(multi.acc_grads)
+    for key, source in moments.items():
+        for name, target in tensors[key].items():
+            if name not in source or source[name].shape != target.shape:
+                raise ValueError(f"{name}: optax {key} "
+                                 f"{tuple(source[name].shape) if name in source else 'missing'}"
+                                 f" != parameter {tuple(target.shape)}")
+            target.copy_(source[name])
+    for step in tensors["step"].values():
+        step.fill_(float(count))
+    tensors["count"] = count
+    tensors["mini_step"] = int(multi.mini_step) if multi is not None else 0
 
 
 def _find_state(tree: Any, name: str) -> Any:

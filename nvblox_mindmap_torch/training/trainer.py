@@ -231,7 +231,7 @@ class Trainer:
             total_iters=cfg.train_iters,
             convergence_percentage=cfg.learning_rate_convergence_percentage,
             accumulate_grad_batches=cfg.accumulate_grad_batches,
-            # The frozen backbone (upstream semantics); a CLIP FPN would train.
+            # The frozen backbone (upstream semantics); CLIP's FPN trains.
             trainable_mask=frozen_feature_extractor_mask(model, fpn_trainable=True),
         )
         return model, self.optimizer
@@ -509,11 +509,12 @@ class Trainer:
         """Build the model and optimizer from a checkpoint; returns (iter,
         best_loss). A port checkpoint (a ``.ckpt`` file, or a ``best/`` /
         ``last/`` directory of the asynchronous backend) restores both. A
-        JAX package checkpoint file gives its parameters (through the weight
-        bridge), iter, best_loss and its optax state: the Adam moments, the
-        schedule's update count and a pending accumulation. A file whose
-        optax state is empty (``None``) starts the optimizer afresh, and says
-        so."""
+        JAX package checkpoint (a ``.ckpt`` file, or a ``best/`` / ``last/``
+        directory of its orbax backend) gives its parameters (through the
+        weight bridge), iter, best_loss and its optax state: the Adam
+        moments, the schedule's update count and a pending accumulation. A
+        file whose optax state is empty (``None``) starts the optimizer
+        afresh, and says so."""
         if os.path.isdir(path):
             from nvblox_mindmap_torch.training.orbax_checkpoint import OrbaxCheckpointer
 

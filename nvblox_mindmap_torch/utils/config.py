@@ -462,6 +462,7 @@ def model_config_from_args(args: ModelArgs, vertex_feature_dim: Optional[int] = 
     extra = {} if vertex_feature_dim is None else {"vertex_feature_dim": int(vertex_feature_dim)}
     return DiffuserActorConfig(
         embedding_dim=args.embedding_dim,
+        num_vis_ins_attn_layers=args.num_vis_ins_attn_layers,
         nhist=args.num_history,
         ngrippers=ngrippers,
         prediction_horizon=args.prediction_horizon,

@@ -165,8 +165,23 @@ def test_vit_matches_jax(feature_type):
 
 
 def test_unported_extractor_raises():
-    with pytest.raises(NotImplementedError, match="clip_resnet_fpn"):
-        tfe.make_feature_extractor("clip_resnet50_fpn")
+    """The last extractor the port used to refuse, CLIP ResNet-50 FPN, is
+    built by the registry and matches the JAX package's (a 4x4 feature grid,
+    the smallest whose res5 is not empty, from a 20x20 input; the
+    module-level parity is in
+    ``tests/test_torch_clip.py``). A type the registry does not know
+    raises."""
+    rgb = np.random.default_rng(14).uniform(size=(1, 20, 20, 3)).astype(np.float32)
+    jmodule = jfe.make_feature_extractor(jfe.FeatureExtractorType.CLIP_RESNET50_FPN, (4, 4))
+    params = jax.jit(jmodule.init)(jax.random.PRNGKey(0), jnp.asarray(rgb))["params"]
+    ref = jmodule.apply({"params": params}, jnp.asarray(rgb))
+    module = tfe.make_feature_extractor("clip_resnet50_fpn", (4, 4), mean_std=((0.5,) * 3,) * 2)
+    load_flax_params(module, params)
+    out = module(torch.from_numpy(rgb))
+    assert out.shape == (1, 4, 4, tfe.get_feature_dim("clip_resnet50_fpn")) == ref.shape
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=1e-4, rtol=0)
+    with pytest.raises(ValueError):
+        tfe.make_feature_extractor("clip_vit_l14")
 
 
 # ------------------------------------------------------------------ encode

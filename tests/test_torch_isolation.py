@@ -19,6 +19,11 @@
   embodiment (cube_stacking, drill_in_box), the task-success experiment's
   ``gen`` and ``openloop`` stages (``--device cpu``, at a small width), and
   the open-loop app with and without ``--ply_output_dir``.
+- A fifth, with the same modules and ``orbax`` / ``tensorstore`` blocked,
+  trains a CLIP rgbd_and_mesh model one step (the FPN moves, the trunk does
+  not), runs the three checkpoint scripts on its ``best.ckpt`` and on a
+  dataset, samples a language model through the flash op, and restores an
+  orbax directory that the JAX package wrote (in this process, before).
 - A scan of the port's sources and ``chip_smoke.py`` for such imports.
 - Entry points called without a device on a machine without CUDA raise
   rather than fall back to the CPU (the packed loader and serving too,
@@ -35,7 +40,7 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "nvblox_mindmap_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "nvblox_mindmap_tpu")
 
 SMALL_PATH = r"""
 import sys
@@ -352,6 +357,115 @@ def test_experiments_run_without_the_reference_readers():
     assert "LOADED []" in proc.stdout, proc.stdout
 
 
+CLIP_LANGUAGE = r"""
+import sys
+for name in ("jax", "flax", "optax", "orbax", "tensorstore", "zstandard", "imageio", "PIL",
+             "wandb", "matplotlib"):
+    sys.modules[name] = None  # any import of it now raises ImportError
+import os
+import tempfile
+import numpy as np
+import torch
+from nvblox_mindmap_torch.data.writer import DemoWriter
+from nvblox_mindmap_torch.models.converter import (
+    apply_inference_settings, convert_diffusion_scheduler, convert_to_flash_attention)
+from nvblox_mindmap_torch.models.diffuser_actor import (
+    DiffuserActorConfig, prepare_inputs, sample_trajectory)
+from nvblox_mindmap_torch.models.pretrained import make_feature_fn
+from nvblox_mindmap_torch.scripts import (
+    checkpoint_tools, extract_fpn_from_model, extract_image_features)
+from nvblox_mindmap_torch.training.trainer import Trainer, TrainerConfig
+
+torch.set_num_threads(1)
+root = tempfile.mkdtemp()
+rng = np.random.default_rng(0)
+bounds = np.asarray([[0, 0, 0], [1, 1, 1]], np.float32)
+q = rng.normal(size=(2, 3, 1, 4))
+q /= np.linalg.norm(q, axis=-1, keepdims=True)
+history = np.concatenate([rng.uniform(0, 1, (2, 3, 1, 3)), q, np.ones((2, 3, 1, 1))], -1)
+batch = {"gripper_history": history.astype(np.float32),
+         "gt_gripper_pred": history[:, -1:].astype(np.float32),
+         "rgbs": rng.integers(0, 256, (2, 1, 32, 32, 3)).astype(np.uint8),
+         "pcds": rng.uniform(0, 1, (2, 1, 32, 32, 3)).astype(np.float32),
+         "vertices": rng.uniform(0, 1, (2, 16, 3)).astype(np.float32),
+         "vertex_features": rng.normal(size=(2, 16, 120)).astype(np.float32)}
+# CLIP: one train step moves the FPN and leaves the trunk.
+cfg = DiffuserActorConfig(embedding_dim=24, num_attn_heads=4, vertex_feature_dim=120,
+                          data_type="rgbd_and_mesh", feature_type="clip_resnet50_fpn",
+                          feature_image_size=(4, 4), diffusion_timesteps=10,
+                          fps_subsampling_factor=4)
+trainer = Trainer(cfg, TrainerConfig(checkpoint_dir=os.path.join(root, "ckpt")), bounds,
+                  device="cpu")
+trainer.init_state()
+before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+assert bool(torch.isfinite(trainer.train_one_step(batch, 0)["total"]))
+after = trainer.model.state_dict()
+assert all(torch.equal(after[k], v) for k, v in before.items() if ".backbone." in k)
+assert not torch.equal(after["encoder.feature_extractor.fpn.layer_2.weight"],
+                       before["encoder.feature_extractor.fpn.layer_2.weight"])
+trainer._save_best_and_last(0, 1.0, None)
+best = os.path.join(root, "ckpt", "best.ckpt")
+# The three scripts.
+assert checkpoint_tools.print_checkpoint_info(best) == (0, 1.0)
+checkpoint_tools.main(["extract", best, "encoder/feature_extractor/fpn",
+                       os.path.join(root, "fpn.msgpack")])
+assert "inner_2" in checkpoint_tools.load_subtree(os.path.join(root, "fpn.msgpack"))
+npz = os.path.join(root, "fpn.npz")
+extract_fpn_from_model.main(["--model_path", best, "--output_path", npz])
+frame = rng.uniform(size=(32, 32, 3)).astype(np.float32)
+features = make_feature_fn("clip_resnet50_fpn", (8, 8), npz, (4, 4), device="cpu")(frame)
+assert features.shape == (8, 8, 120) and bool(torch.isfinite(features).all())
+writer = DemoWriter(os.path.join(root, "ds", "demo_00000"))
+K = np.asarray([[20.0, 0, 8], [0, 20.0, 8], [0, 0, 1]], np.float32)
+writer.write_camera_frame(0, "wrist", rng.integers(0, 256, (16, 16, 3), dtype=np.uint8),
+                          np.full((16, 16), 0.8), np.asarray([0, 0, 1, 1, 0, 0, 0]), K)
+extract_image_features.main(["--dataset", os.path.join(root, "ds"), "--feature_type",
+                             "clip_resnet50_fpn", "--feature_image_size", "4", "--device", "cpu"])
+assert np.load(os.path.join(root, "ds", "demo_00000", "0.wrist_features.npy")).shape == (4, 4, 120)
+# Language, through the flash op.
+cfg = DiffuserActorConfig(embedding_dim=24, num_attn_heads=4, vertex_feature_dim=120,
+                          use_instruction=True, lang_enhanced=True, diffusion_timesteps=10,
+                          fps_subsampling_factor=4)
+torch.manual_seed(0)
+from nvblox_mindmap_torch.models.diffuser_actor import DiffuserActor
+model = DiffuserActor(cfg, device="cpu")
+batch["instruction"] = rng.normal(size=(2, 53, 512)).astype(np.float32)
+kw = apply_inference_settings(dict(convert_to_flash_attention(), **convert_diffusion_scheduler(3)))
+traj, _, _ = sample_trajectory(model, prepare_inputs(batch, bounds, cfg, device="cpu"), bounds,
+                               generator=torch.Generator().manual_seed(0), **kw)
+assert traj.shape == (2, 1, 1, 8) and bool(torch.isfinite(traj).all())
+# A JAX-written orbax directory, without tensorstore.
+cfg = DiffuserActorConfig(embedding_dim=24, num_attn_heads=4, vertex_feature_dim=8,
+                          diffusion_timesteps=100, fps_subsampling_factor=4)
+trainer = Trainer(cfg, TrainerConfig(), bounds, device="cpu")
+assert trainer.load_checkpoint(sys.argv[1]) == (3, 0.5)
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in {FORBIDDEN})
+print("LOADED", loaded)
+"""
+
+
+def test_clip_language_scripts_and_jax_orbax_run_without_jax(tmp_path):
+    from nvblox_mindmap_tpu.training import trainer as jtrainer
+    from nvblox_mindmap_tpu.training.orbax_checkpoint import OrbaxCheckpointer
+    from tests.test_torch_model_parity import configs
+    from tests.test_torch_training import SMALL, mesh_batch
+
+    jcfg, _ = configs(8, **SMALL)
+    jt = jtrainer.Trainer(jcfg, jtrainer.TrainerConfig(batch_size=2),
+                          np.asarray([[0, 0, 0], [1, 1, 1]], np.float32))
+    params, opt_state = jt.init_state(mesh_batch(np.random.default_rng(0)))
+    jckpt = OrbaxCheckpointer(str(tmp_path), async_write=False)
+    jckpt.save("last", params, opt_state, 3, 0.5)
+    blocked = FORBIDDEN + ("zstandard", "imageio", "PIL", "wandb", "matplotlib")
+    code = CLIP_LANGUAGE.replace("{FORBIDDEN}", repr(set(blocked)))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "last")], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
 def _port_sources():
     paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "compare_flash_kernels.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "nvblox_mindmap_torch")):
@@ -379,7 +493,10 @@ def test_sources_import_nothing_of_jax():
                    "scripts/task_success_experiment.py",
                    "scripts/spatial_memory_experiment.py", "parallel/mesh.py",
                    "parallel/multihost.py", "parallel/serving.py", "data/packed.py",
-                   "scripts/pack_dataset.py", "training/orbax_checkpoint.py"):
+                   "scripts/pack_dataset.py", "training/orbax_checkpoint.py",
+                   "models/clip_resnet_fpn.py", "scripts/checkpoint_tools.py",
+                   "scripts/extract_fpn_from_model.py",
+                   "scripts/extract_image_features.py"):
         assert os.path.join(ROOT, "nvblox_mindmap_torch", module) in sources, module
     for path in sources:
         with open(path) as f:

@@ -315,10 +315,22 @@ def test_bridge_is_strict(small):
 
 
 def test_unported_paths_raise():
-    cfg = tda.DiffuserActorConfig(data_type="rgbd_and_mesh", feature_type="clip_resnet50_fpn")
-    with pytest.raises(NotImplementedError, match="clip_resnet_fpn"):
-        tda.DiffuserActor(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="language"):
-        tda.DiffuserActorConfig(use_instruction=True)
+    """The CLIP and language configs the port used to refuse now build (the
+    CLIP trunk frozen, its FPN trainable; the language modules present);
+    their parity is in ``tests/test_torch_clip.py`` and
+    ``tests/test_torch_language.py``. A shared feature encoder without
+    image inputs still raises."""
+    cfg = tda.DiffuserActorConfig(data_type="rgbd_and_mesh", feature_type="clip_resnet50_fpn",
+                                  feature_image_size=(4, 4), embedding_dim=24,
+                                  num_attn_heads=4)
+    model = tda.DiffuserActor(cfg, device="cpu")
+    extractor = model.encoder.feature_extractor
+    assert not any(p.requires_grad for p in extractor.backbone.parameters())
+    assert all(p.requires_grad for p in extractor.fpn.parameters())
+    cfg = tda.DiffuserActorConfig(use_instruction=True, lang_enhanced=True, embedding_dim=24,
+                                  num_attn_heads=4)
+    model = tda.DiffuserActor(cfg, device="cpu")
+    assert hasattr(model.encoder, "vl_attention") and hasattr(model.head, "traj_lang_attention")
+    assert sorted(model.head.self_attn.cross_inds) == [0, 1, 2]
     with pytest.raises(ValueError, match="image inputs"):
         tda.DiffuserActorConfig(data_type="mesh", use_shared_feature_encoder=True)
