@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the torch port's keypose prediction, live mapping, closed-loop
 policy, training, its training, open-loop, datagen and closed-loop apps,
-the task-success and spatial-memory experiments with the committed trained
-policies, training from a packed epoch and under torchrun, batched
-serving, the CLIP ResNet-50 FPN extractor through the loop and the
-language layers, on one NVIDIA GPU.
+the task-success and spatial-memory experiments and the place-grounding
+probe with the committed trained policies, training from a packed epoch and
+under torchrun, batched serving, the CLIP ResNet-50 FPN extractor through
+the loop, the language layers, and the map's triangle mesh, dense views and
+the visualization, USD, video and dataset tools, on one NVIDIA GPU.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It
 
@@ -107,7 +108,11 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    ``eval_pick_keypose_error`` of the committed spatial-memory fixtures
    (phase ``spatial_memory``): mesh under 0.06 m, rgbd over 0.08 m and
    over twice the mesh error; each keypose's 3 seeds are one DDPM-100
-   call of 3 rows;
+   call of 3 rows; and, in a sixth worker, runs
+   ``scripts/place_grounding_probe`` with the committed cube_stacking
+   fixture over 8 fresh scenes (phase ``place_grounding``: every goal
+   3 + 2*100 split and 8*100 tile launches; it prints the summary's
+   slopes, correlations and release errors);
 12. waits for the torchrun run (phase ``ddp``): the packed app run again
    under ``python -m torch.distributed.run --nproc_per_node 1`` (NCCL, world
    size 1) with ``--checkpoint_backend orbax``; its losses must equal the
@@ -122,7 +127,21 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    RADIO ViT-B/16 .npz, 12 frames, the serialized map. Every frame's item
    must read back with 768-d fp16 features and the map file must reload
    equal to the live map, bit for bit. It prints the per-part times per
-   frame and the card's idle share;
+   frame and the card's idle share. Then phase ``reconstruction`` reads
+   that map file on the card: ``Mapper.update_color_mesh`` with the device
+   and the host backend must give the same vertex and triangle counts
+   (printed against the budgets), vertices within 1e-5, colors within
+   1e-6 and the same triangle set; the same file on the CPU must give the
+   card's mesh (vertices within 1e-6) and dense views exactly; it prints
+   host-clock p50s of the device and the numpy Surface Nets, each
+   backend's whole ``update_color_mesh`` and the dense views
+   (``features_dense`` at 768-d, ``colors_dense``, ``tsdf_dense``) beside
+   their byte bounds, and peak memory; runs ``visualize_nvblox_tensors``,
+   ``generate_reconstruction_figures``, ``convert_maps_usd``,
+   ``make_mp4_from_dataset`` (rgb and depth), ``video_from_depth`` and
+   ``visualize_keyposes`` on the demo, decoding every PNG they write; and
+   ``datasets_are_close`` must hold the demo close to a copy of itself and
+   not to a copy with one item changed;
 14. runs the closed-loop app (``apps/run_closed_loop_policy.py``, phase
    ``closed_loop_app``) on that demo in the scene world with the training
    app's best.ckpt: the app's flagship (``rgbd_and_mesh``, the ego camera at
@@ -172,6 +191,7 @@ not beside it: a copy of the script on its own refuses to run.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import statistics
@@ -2366,6 +2386,265 @@ def run_datagen_app(root, npz):
     return demo
 
 
+# Phase reconstruction: Mapper.update_color_mesh's budgets, the JAX test's
+# bars between its device and host backends (tests/test_surface_nets.py:
+# 124-134), and the card against the CPU: the mesh's vertices within a few
+# ulps, everything else equal.
+RECON_BUDGETS = (65536, 262144)
+RECON_VERTEX_ATOL = 1e-5
+RECON_COLOR_ATOL = 1e-6
+RECON_CARD_CPU_ATOL = 1e-6
+RECON_REPS = 10  # host-clock reps of each device op
+RECON_HOST_REPS = 3  # of the numpy Surface Nets and the whole update_color_mesh
+
+
+def timed_reps(fn, reps):
+    """summary_ms of ``reps`` host-clock calls of ``fn`` (each ending in a
+    synchronize), after one warm-up call."""
+    host_ms(fn)
+    return summary_ms([host_ms(fn) for _ in range(reps)])
+
+
+def png_shapes(paths):
+    """Every PNG decodes through the port's reader; their distinct shapes."""
+    from nvblox_mindmap_torch.data.item_io import decode_png
+
+    if not paths:
+        raise AssertionError("reconstruction: no PNG written")
+    shapes = {decode_png(p).shape for p in paths}
+    return sorted(shapes)
+
+
+def run_reconstruction(dataset, demo, work):
+    """Phase ``reconstruction``, on the datagen app's map file (768-d RADIO
+    features, the color layer integrated): the color triangle mesh through
+    ``Mapper.update_color_mesh`` on the card with the device backend and the
+    host backend (the same counts, vertices within 1e-5, colors within
+    1e-6, the same triangle set), the same file's map on the CPU (mesh and
+    dense views against the card's), host-clock p50s of the device Surface
+    Nets, the numpy one, each backend's whole ``update_color_mesh`` and the
+    dense views (``features_dense`` at 768-d, ``colors_dense``,
+    ``tsdf_dense``) beside their byte bounds, peak memory; then the
+    visualization, USD, video and keypose scripts on the demo (each output
+    decoded), and ``datasets_are_close`` on the demo against a copy of
+    itself (true) and a copy with one item changed (false)."""
+    import numpy as np
+    import torch
+
+    from nvblox_mindmap_torch.data.comparisons import datasets_are_close
+    from nvblox_mindmap_torch.mapping import voxel_grid as vg
+    from nvblox_mindmap_torch.mapping.constants import MapperId
+    from nvblox_mindmap_torch.mapping.mapper import Mapper
+    from nvblox_mindmap_torch.mapping.surface_nets import surface_nets
+    from nvblox_mindmap_torch.scripts import (
+        convert_maps_usd,
+        generate_reconstruction_figures,
+        make_mp4_from_dataset,
+        video_from_depth,
+        visualize_keyposes,
+        visualize_nvblox_tensors,
+    )
+
+    t_phase = time.perf_counter()
+    map_path = os.path.join(demo, "nvblox_map_static.nvblx")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    card = Mapper.from_file(map_path, device="cuda")
+    cfg = card.configs[MapperId.STATIC]
+    state = card.states[MapperId.STATIC]
+    X, Y, Z = cfg.grid_shape
+    F = cfg.feature_dim
+    live_pages = int(state.num_pages)
+    out = vg.extract_surface_mesh_device(state, cfg, *RECON_BUDGETS)
+    n_vertices, n_triangles = int(out[5]), int(out[6])
+    del out
+    meshes = {}
+    for backend in ("device", "host"):
+        card.update_color_mesh(backend=backend, max_vertices=RECON_BUDGETS[0],
+                               max_triangles=RECON_BUDGETS[1])
+        meshes[backend] = card.get_color_mesh()
+    (dv, dt, dc), (hv, ht, hc) = meshes["device"], meshes["host"]
+
+    def tri_set(t):
+        return set(map(tuple, np.sort(t, axis=1)))
+
+    if not (len(dv) == len(hv) == n_vertices <= RECON_BUDGETS[0]
+            and len(dt) == len(ht) == n_triangles <= RECON_BUDGETS[1] and n_triangles > 0):
+        raise AssertionError(f"reconstruction: device {len(dv)} / {len(dt)}, host {len(hv)} / "
+                             f"{len(ht)}, counted {n_vertices} / {n_triangles}")
+    vertex_err = float(np.abs(dv - hv).max())
+    color_err = float(np.abs(dc - hc).max())
+    if (vertex_err > RECON_VERTEX_ATOL or color_err > RECON_COLOR_ATOL
+            or tri_set(dt) != tri_set(ht) or not (dc > 0).any()):
+        raise AssertionError(f"reconstruction: device vs host vertices {vertex_err}, colors "
+                             f"{color_err}, triangle sets equal {tri_set(dt) == tri_set(ht)}")
+
+    # The same file's map on the CPU: its device-backend mesh and dense views.
+    cpu = Mapper.from_file(map_path, device="cpu")
+    cpu.update_color_mesh(backend="device", max_vertices=RECON_BUDGETS[0],
+                          max_triangles=RECON_BUDGETS[1])
+    cv, ct, cc = cpu.get_color_mesh()
+    card_cpu = {"vertices": float(np.abs(dv - cv).max()) if len(cv) == len(dv) else None,
+                "triangles_equal": bool(np.array_equal(dt, ct)),
+                "colors_equal": bool(np.array_equal(dc, cc))}
+    for view in ("tsdf", "colors", "features"):
+        on_card = getattr(card, f"{view}_dense")()
+        on_cpu = getattr(cpu, f"{view}_dense")().to("cuda")
+        card_cpu[view] = float((on_card - on_cpu).abs().max())
+        del on_card, on_cpu
+    del cpu
+    if (card_cpu["vertices"] is None or card_cpu["vertices"] > RECON_CARD_CPU_ATOL
+            or not (card_cpu["triangles_equal"] and card_cpu["colors_equal"])
+            or any(card_cpu[v] != 0 for v in ("tsdf", "colors", "features"))):
+        raise AssertionError(f"reconstruction: card vs CPU {card_cpu}")
+    torch.cuda.empty_cache()
+
+    # Host-clock times, each ending in a synchronize.
+    tsdf_host, weight_host = state.tsdf.cpu().numpy(), state.weight.cpu().numpy()
+    origin = np.asarray(cfg.aabb_min_m, np.float64)
+    times = {
+        "surface_nets_device": timed_reps(
+            lambda: vg.extract_surface_mesh_device(state, cfg, *RECON_BUDGETS), RECON_REPS),
+        "surface_nets_host": timed_reps(
+            lambda: surface_nets(tsdf_host, weight_host, cfg.voxel_size_m, origin,
+                                 truncation=cfg.truncation_distance_m), RECON_HOST_REPS),
+    }
+    for backend in ("device", "host"):
+        times[f"update_color_mesh_{backend}"] = timed_reps(
+            lambda: card.update_color_mesh(backend=backend, max_vertices=RECON_BUDGETS[0],
+                                           max_triangles=RECON_BUDGETS[1]), RECON_HOST_REPS)
+    voxels = X * Y * Z
+    page_bytes = live_pages * cfg.block_size**3
+    table_bytes = 4 * len(state.page_table.reshape(-1))
+    dense_bytes = {  # each input read once (the live pages), each output written once
+        "features": voxels * F * 4 + page_bytes * (2 * F + 4) + table_bytes,
+        "colors": voxels * 3 * 4 + page_bytes * (2 * 3 + 4) + table_bytes,
+        "tsdf": voxels * 4 * 3,
+    }
+    dense = {}
+    peak = torch.cuda.max_memory_allocated()  # the phase's so far
+    for view, nbytes in dense_bytes.items():
+        fn = getattr(card, f"{view}_dense")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        shape = tuple(fn().shape)
+        view_peak = torch.cuda.max_memory_allocated()
+        peak = max(peak, view_peak)
+        t = timed_reps(fn, RECON_REPS)
+        dense[view] = dict(shape=list(shape), bytes=nbytes,
+                           bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                           bound_share=nbytes / PEAK_BYTES_PER_S * 1e3 / t["p50_ms"],
+                           peak_extra_gb=(view_peak - before) / 1e9, **t)
+    del card, state
+    torch.cuda.empty_cache()
+
+    # The scripts, on the card's default device, outputs under work/.
+    scripts = {}
+    root = os.path.join(work, "reconstruction")
+    frames = len([f for f in os.listdir(demo) if f.endswith(".wrist_rgb.png")])
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        scripts[name] = dict(seconds=time.perf_counter() - t0, **result)
+
+    def viz():
+        d = os.path.join(root, "viz")
+        visualize_nvblox_tensors.main(["--map", map_path, "--output_dir", d])
+        return dict(slices=png_shapes(sorted(glob_files(d, "tsdf_slice_*.png"))),
+                    surface_vertices=ply_vertex_count(os.path.join(d, "surface.ply")))
+
+    def figures():
+        d = os.path.join(root, "figs")
+        generate_reconstruction_figures.main(["--map_path", map_path, "--output_dir", d])
+        shapes = png_shapes([os.path.join(d, f"nvblox_map_static_{kind}.png")
+                             for kind in ("color_mesh", "feature_cubes_mesh")])
+        if len(shapes) != 1 or not os.path.exists(os.path.join(d, "pca_params.npz")):
+            raise AssertionError(f"reconstruction: figures {shapes}")
+        return dict(figures=shapes)
+
+    def usd():
+        d = os.path.join(root, "usd")
+        os.makedirs(d)
+        os.symlink(map_path, os.path.join(d, "nvblox_map_static.nvblx"))
+        convert_maps_usd.main(["--input_dir", d])
+        path = os.path.join(d, "nvblox_map_static.usda")
+        with open(path) as f:
+            head = f.read(64)
+        if not head.startswith("#usda 1.0"):
+            raise AssertionError(f"reconstruction: {path} starts {head!r}")
+        return dict(usda_mb=os.path.getsize(path) / 1e6)
+
+    def video(modality):
+        d = os.path.join(root, "mp4")
+        make_mp4_from_dataset.main(["--dataset", dataset, "--demos", "0", "--camera", "wrist",
+                                    "--modality", modality, "--output_dir", d])
+        paths = glob_files(d, f"demo_00000_wrist_{modality}_*.png")
+        if len(paths) != frames:
+            raise AssertionError(f"reconstruction: {len(paths)} {modality} frames of {frames}")
+        return dict(frames=len(paths), shapes=png_shapes(paths))
+
+    def depth_video():
+        d = os.path.join(root, "depth")
+        video_from_depth.main([demo, os.path.join(d, "wrist_depth.mp4"), "--pattern",
+                               "*.wrist_depth.png"])
+        paths = glob_files(d, "wrist_depth_*.png")
+        if len(paths) != frames:
+            raise AssertionError(f"reconstruction: {len(paths)} depth frames of {frames}")
+        return dict(frames=len(paths), shapes=png_shapes(paths))
+
+    def keyposes():
+        d = os.path.join(root, "keyposes")
+        visualize_keyposes.main(["--dataset", dataset, "--demos", "0", "--task", LOOP_TASK,
+                                 "--output_dir", d])
+        n = ply_vertex_count(os.path.join(d, "demo_00000_keyposes.ply"))
+        if n != frames:
+            raise AssertionError(f"reconstruction: keypose cloud of {n} of {frames} frames")
+        return dict(points=n)
+
+    run("visualize_nvblox_tensors", viz)
+    run("generate_reconstruction_figures", figures)
+    run("convert_maps_usd", usd)
+    run("make_mp4_from_dataset_rgb", lambda: video("rgb"))
+    run("make_mp4_from_dataset_depth", lambda: video("depth"))
+    run("video_from_depth", depth_video)
+    run("visualize_keyposes", keyposes)
+
+    # datasets_are_close: the demo against a linked copy, then with one item
+    # written anew, changed.
+    copy = os.path.join(root, "copy", os.path.basename(demo))
+    shutil.copytree(demo, copy, copy_function=os.link)
+    t0 = time.perf_counter()
+    same = datasets_are_close(demo, copy)
+    compare_s = time.perf_counter() - t0
+    item = os.path.join(copy, "0.robot_state.npy")
+    robot_state = np.load(item)
+    os.remove(item)
+    np.save(item, robot_state + 0.01)
+    changed = datasets_are_close(demo, copy)
+    if same != (True, []) or changed != (False, ["0.robot_state.npy"]):
+        raise AssertionError(f"reconstruction: datasets_are_close {same}, {changed}")
+    shutil.rmtree(root, ignore_errors=True)
+
+    phase("reconstruction", map=os.path.relpath(map_path, dataset), grid=[X, Y, Z],
+          voxel_size_m=cfg.voxel_size_m, feature_dim=F, pages=cfg.max_feature_pages,
+          live_pages=live_pages, vertices=n_vertices, triangles=n_triangles,
+          budgets=dict(vertices=RECON_BUDGETS[0], triangles=RECON_BUDGETS[1]),
+          device_vs_host=dict(vertices_max_abs_err=vertex_err, colors_max_abs_err=color_err,
+                              triangle_sets_equal=True),
+          card_vs_cpu=card_cpu, times=times, dense=dense, peak_gb=peak / 1e9, scripts=scripts,
+          datasets_are_close=dict(same=same[0], changed=changed[0], mismatched=changed[1],
+                                  compare_s=compare_s),
+          seconds=time.perf_counter() - t_phase)
+
+
+def glob_files(directory, pattern):
+    import glob
+
+    return sorted(glob.glob(os.path.join(directory, pattern)))
+
+
 def run_closed_loop_app(root, checkpoint, npz):
     """Phase 11: ``apps/run_closed_loop_policy.py`` on the recorded demo in
     the scene world, with the training app's best.ckpt: the app's flagship
@@ -3077,6 +3356,13 @@ SPATIAL_MEMORY_SEED = 100
 SPATIAL_MEMORY_DEMOS = 3
 SPATIAL_MEMORY_SEEDS = 3  # eval_seeds: the rows of one sampler call per keypose
 FIXTURES = os.path.join(ROOT, "tests", "test_data")
+# scripts/place_grounding_probe: its summary fits slopes to 4 released
+# scenes or more, and a scene may end with no release (1 of 4 did on the
+# card), so 8 scenes; the cube fixture samples DDPM at its 100 training
+# timesteps.
+PROBE_FIXTURE = os.path.join(FIXTURES, "task_success", "cube_stacking", "last.ckpt")
+PROBE_SCENES = 8
+PROBE_STEPS = 100
 # The flash shapes (B, H, L, S, D, masked) the new phases gave the kernels.
 PATH_SHAPES = set()
 
@@ -3415,34 +3701,93 @@ def spatial_memory_one():
     return fields, launches, sorted(PATH_SHAPES)
 
 
+def probe_one():
+    """Phase ``place_grounding``: ``scripts/place_grounding_probe`` (its
+    ``main``, on the card) with the committed cube_stacking fixture over
+    PROBE_SCENES fresh scenes (seeds 9000 on): the scripted expert through
+    the lift, then the policy's goals (DDPM-100, the flash kernels) until it
+    commands a release. Every goal must launch 3 + 2*T split and 8*T tile
+    calls. Returns the phase's fields, the launches and the flash shapes."""
+    from unittest import mock
+
+    import torch
+
+    from nvblox_mindmap_torch.closed_loop import policies
+    from nvblox_mindmap_torch.scripts import place_grounding_probe as probe
+
+    t_phase = time.perf_counter()
+    goal_ms = []
+    Policy = policies.NvbloxDiffuserActorPolicy
+    real = Policy.get_new_goal
+
+    def timed(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        goals = real(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        goal_ms.append((time.perf_counter() - t0) * 1e3)
+        return goals
+
+    root = tempfile.mkdtemp(prefix="mindmap_probe_")
+    try:
+        out = os.path.join(root, "place_grounding.json")
+        reset_flash_counts()
+        with mock.patch.object(Policy, "get_new_goal", timed), recording_shapes():
+            probe.main(["--checkpoint", PROBE_FIXTURE, "--scenes", str(PROBE_SCENES),
+                        "--out", out])
+        counts = flash_counts()
+        with open(out) as f:
+            result = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    expected = {k: len(goal_ms) * v for k, v in per_sample(PROBE_STEPS).items()}
+    if counts != expected or not goal_ms:
+        raise AssertionError(f"place_grounding: {counts} flash launches over {len(goal_ms)} "
+                             f"goals, expected {expected}")
+    summary, rows = result["summary"], result["rows"]
+    if summary["num_scenes"] != PROBE_SCENES or len(rows) != PROBE_SCENES or not all(
+            map(math.isfinite, r["cube_1_xy"] + (r["release_xy"] or []))
+            for r in rows):
+        raise AssertionError(f"place_grounding: {result}")
+    fields = dict(fixture=os.path.relpath(PROBE_FIXTURE, ROOT), scenes=PROBE_SCENES,
+                  seed_base=9000, sampler=f"ddpm{PROBE_STEPS}", **summary, rows=rows,
+                  goals=len(goal_ms), goal=summary_ms(goal_ms), launches=counts,
+                  launches_per_goal=per_sample(PROBE_STEPS),
+                  seconds=time.perf_counter() - t_phase)
+    return fields, counts, sorted(PATH_SHAPES)
+
+
 def run_experiments(beside=None):
-    """Phases ``task_success`` (one worker process per task) and
-    ``spatial_memory`` (a fifth), side by side in spawned workers. Each is
-    host-bound (the scene world's render, the samplers' dispatch: the card
-    idles ~0.9 of the time), so together they take about the time of the
-    longest; their host times are measured with the others running, and
-    with ``beside()``, which this process runs meanwhile. Returns each
-    kernel's launches over all five, and what ``beside`` returned."""
+    """Phases ``task_success`` (one worker process per task),
+    ``spatial_memory`` (a fifth) and ``place_grounding`` (a sixth), side by
+    side in spawned workers. Each is host-bound (the scene world's render,
+    the samplers' dispatch: the card idles ~0.9 of the time), so together
+    they take about the time of the longest; their host times are measured
+    with the others running, and with ``beside()``, which this process runs
+    meanwhile. Returns each kernel's launches over all six, and what
+    ``beside`` returned."""
     import concurrent.futures
     import multiprocessing
 
-    workers = len(TASK_SUCCESS) + 1
+    workers = len(TASK_SUCCESS) + 2
     launches = {}
     with concurrent.futures.ProcessPoolExecutor(
             workers, mp_context=multiprocessing.get_context("spawn"),
             initializer=init_worker, initargs=(workers,)) as pool:
         tasks = [pool.submit(task_success_one, *task) for task in TASK_SUCCESS]
         spatial = pool.submit(spatial_memory_one)
+        probe = pool.submit(probe_one)
         beside_result = beside() if beside is not None else None
         for future in tasks:
             row, counts, shapes = future.result()
             add_launches(launches, counts)
             PATH_SHAPES.update(map(tuple, shapes))
             phase("task_success", workers=workers, **row)
-        fields, counts, shapes = spatial.result()
-    add_launches(launches, counts)
-    PATH_SHAPES.update(map(tuple, shapes))
-    phase("spatial_memory", workers=workers, **fields)
+        for name, future in (("spatial_memory", spatial), ("place_grounding", probe)):
+            fields, counts, shapes = future.result()
+            add_launches(launches, counts)
+            PATH_SHAPES.update(map(tuple, shapes))
+            phase(name, workers=workers, **fields)
     return launches, beside_result
 
 
@@ -3531,7 +3876,8 @@ def main() -> int:
         npz = os.path.join(work, "radio_v25_b.npz")
         save_random_backbone(npz)
         dataset = os.path.join(work, "dataset")
-        run_datagen_app(dataset, npz)
+        demo = run_datagen_app(dataset, npz)
+        run_reconstruction(dataset, demo, work)
         for kernel, n in run_closed_loop_app(dataset, os.path.join(work, "best.ckpt"),
                                              npz).items():
             launches[kernel] = launches.get(kernel, 0) + n

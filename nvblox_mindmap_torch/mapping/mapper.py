@@ -1,12 +1,15 @@
 """Mapper: the nvblox_torch-style API over the voxel grid.
 
-Port of the live-mapping part of ``nvblox_mindmap_tpu/mapping/mapper.py``
+Port of ``nvblox_mindmap_tpu/mapping/mapper.py``
 (upstream ``mindmap/mapping/isaaclab_nvblox_mapper.py`` and its helpers):
 
 - ``Mapper``: a STATIC (and optionally DYNAMIC) map on one device, with the
   nvblox_torch method surface ``add_depth_frame`` / ``add_color_frame`` /
   ``add_feature_frame`` / ``decay`` / ``clear`` / ``update_feature_mesh`` /
-  ``get_feature_mesh``;
+  ``get_feature_mesh``, the color triangle mesh ``update_color_mesh`` /
+  ``get_color_mesh`` (Surface Nets on the device or the host) and the
+  dense layer views ``tsdf_dense`` / ``features_dense`` / ``colors_dense``
+  / ``weight_dense``;
 - ``integrate_frame``: the per-frame recipe (depth, then color, then
   features) with mask erosion, border masking and the feature image's
   upscaled intrinsics;
@@ -89,6 +92,7 @@ class Mapper:
         self.configs = dict(configs)
         self.states = {mid: vg.create_state(cfg, self.device) for mid, cfg in self.configs.items()}
         self._mesh_cache: Dict[int, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
+        self._color_mesh_cache: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
         self.last_crossing_count: Optional[int] = None
 
     @classmethod
@@ -173,6 +177,92 @@ class Mapper:
         if mapper_id not in self._mesh_cache:
             self.update_feature_mesh(mapper_id)
         return self._mesh_cache[mapper_id]
+
+    def update_color_mesh(self, mapper_id: int = MapperId.STATIC,
+                          backend: str = "device",
+                          max_vertices: int = 65536,
+                          max_triangles: int = 262144):
+        """Extract a triangle mesh with per-vertex colors (upstream: nvblox
+        ``update_color_mesh`` / ``get_color_mesh``, for visualization).
+
+        ``backend="device"`` runs Surface Nets on the map's device
+        (``vg.extract_surface_mesh_device``, fixed budgets, a warning when
+        they overflow); ``"host"`` runs ``surface_nets`` in numpy (no
+        budget). Either way the mesh and its colors land on the host; the
+        feature pool stays on the device.
+
+        As in the JAX package, the result is one cache for the mapper, not
+        one per ``mapper_id``, and ``clear`` keeps it.
+        """
+        cfg = self.configs[mapper_id]
+        state = self.states[mapper_id]
+        if backend == "device":
+            (vertices, vertex_valid, cells, triangles, tri_valid,
+             n_vertices, n_triangles) = vg.extract_surface_mesh_device(
+                state, cfg, max_vertices, max_triangles)
+            n_vertices, n_triangles = int(n_vertices), int(n_triangles)
+            if n_vertices > max_vertices or n_triangles > max_triangles:
+                logger.warning(
+                    "color-mesh budget overflow: %d vertices / %d triangles (budget %d / %d); "
+                    "mesh truncated", n_vertices, n_triangles, max_vertices, max_triangles)
+            vertices = vertices[vertex_valid].cpu().numpy()
+            cells = cells[vertex_valid].cpu().numpy()
+            triangles = triangles[tri_valid].cpu().numpy()
+        elif backend == "host":
+            from nvblox_mindmap_torch.mapping.surface_nets import surface_nets
+
+            vertices, triangles, cells = surface_nets(
+                state.tsdf.cpu().numpy(), state.weight.cpu().numpy(), cfg.voxel_size_m,
+                np.asarray(cfg.aabb_min_m, dtype=np.float64),
+                truncation=cfg.truncation_distance_m)
+        else:
+            raise ValueError(f"backend must be 'device' or 'host', got {backend!r}")
+        colors = self._lookup_pool_host(
+            state.page_table.cpu().numpy(), cfg, cells, state.color.cpu().numpy(),
+            state.color_weight.cpu().numpy())
+        self._color_mesh_cache = (vertices, triangles, colors)
+
+    def get_color_mesh(self, mapper_id: int = MapperId.STATIC):
+        """(vertices (V, 3), triangles (T, 3), colors (V, 3)) host arrays;
+        extracts on the device if ``update_color_mesh`` was not called."""
+        if self._color_mesh_cache is None:
+            self.update_color_mesh(mapper_id)
+        return self._color_mesh_cache
+
+    @staticmethod
+    def _lookup_pool_host(page_table: np.ndarray, cfg: MappingConfig, voxels: np.ndarray,
+                          pool, pool_weight) -> np.ndarray:
+        """Per-voxel pool lookup on the host: (N, C) float32, zero where the
+        voxel has no page or no weight; every argument a host array."""
+        if len(voxels) == 0:
+            return np.zeros((0, np.asarray(pool).shape[-1]), np.float32)
+        b = cfg.block_size
+        page_table = np.asarray(page_table)
+        pool = np.asarray(pool)
+        pool_weight = np.asarray(pool_weight)
+        vx, vy, vz = voxels.T
+        page = page_table[vx // b, vy // b, vz // b]
+        slot = ((vx % b) * b + (vy % b)) * b + (vz % b)
+        safe = np.maximum(page, 0)
+        values = pool[safe, slot].astype(np.float32)
+        has = (page >= 0) & (pool_weight[safe, slot] > 0)
+        return np.where(has[:, None], values, 0.0)
+
+    # --- dense queries (layer views), on the map's device --------------------
+    def tsdf_dense(self, mapper_id: int = MapperId.STATIC) -> torch.Tensor:
+        """(X, Y, Z) TSDF, unobserved voxels at the config's ``unobserved_value``."""
+        return vg.query_tsdf_dense(self.states[mapper_id], self.configs[mapper_id])
+
+    def features_dense(self, mapper_id: int = MapperId.STATIC) -> torch.Tensor:
+        """(X, Y, Z, F) fp32 feature grid (zeros where unallocated)."""
+        return vg.query_features_dense(self.states[mapper_id], self.configs[mapper_id])
+
+    def colors_dense(self, mapper_id: int = MapperId.STATIC) -> torch.Tensor:
+        """(X, Y, Z, 3) fp32 color grid (zeros where unallocated)."""
+        return vg.query_colors_dense(self.states[mapper_id], self.configs[mapper_id])
+
+    def weight_dense(self, mapper_id: int = MapperId.STATIC) -> torch.Tensor:
+        return self.states[mapper_id].weight
 
     # --- persistence ---------------------------------------------------------
     def save_map(self, path: str, mapper_id: int = MapperId.STATIC):

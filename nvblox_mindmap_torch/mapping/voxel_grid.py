@@ -11,6 +11,9 @@ SURVEY.md section 2.2). The design is the JAX package's:
   over the block grid plus a (P, 512, F) fp16 page pool. Pages go to blocks
   that hold near-surface voxels; allocation is a cumsum over the block grid.
 - Every op is pure: state in, new state out.
+- The triangle mesh (Surface Nets, ``extract_surface_mesh_device``) and the
+  dense layer views (``query_*_dense``) read the state on its device too;
+  counts come back as tensors.
 
 The JAX package runs these as XLA programs (no Pallas kernel: they are
 image gathers, ``voxel_grid.py:23-29`` there); here they are plain PyTorch
@@ -156,6 +159,15 @@ def voxel_centers_flat(config: MappingConfig, device: DeviceLike = None) -> torc
     idx = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1).reshape(-1, 3)
     origin = torch.tensor(config.aabb_min_m, dtype=torch.float32, device=device)
     return origin + (idx + 0.5) * config.voxel_size_m
+
+
+def get_voxel_center_grids(config: MappingConfig, device: DeviceLike = None) -> torch.Tensor:
+    """(X, Y, Z, 3) world coordinates of every voxel centre: the grid-shaped
+    ``voxel_centers_flat`` (nvblox_torch's ``get_voxel_center_grids``), on
+    ``device`` (default ``cuda``; raises when CUDA is absent and no device
+    is given)."""
+    X, Y, Z = config.grid_shape
+    return voxel_centers_flat(config, resolve_device(device)).reshape(X, Y, Z, 3)
 
 
 def _project(points_w: torch.Tensor, T_WC: torch.Tensor, K: torch.Tensor):
@@ -501,6 +513,192 @@ def extract_surface_vertices(
     if return_count:
         return vertices, features, valid, count
     return vertices, features, valid
+
+
+def _corner(a: torch.Tensor, dx: int, dy: int, dz: int) -> torch.Tensor:
+    """The (X-1, Y-1, Z-1) cell lattice's corner (dx, dy, dz) of a voxel grid."""
+    X, Y, Z = a.shape
+    return a[dx:X - 1 + dx, dy:Y - 1 + dy, dz:Z - 1 + dz]
+
+
+def extract_surface_mesh_device(
+    state: VoxelGridState, config: MappingConfig,
+    max_vertices: int = 65536, max_triangles: int = 262144,
+):
+    """Dual (Surface Nets) triangle mesh on the state's device, without a
+    host sync: the device pass of ``mapping/surface_nets.py``.
+
+    One vertex per sign-change cell at the mean of its edge zero-crossings,
+    a quad (two triangles) across every grid edge with a sign change. Fixed
+    budgets keep the shapes static, as the JAX package's jitted pass
+    (``voxel_grid.py:571-742`` there) does; overflow shows in the counts.
+
+    The arithmetic is the JAX package's, in fp32 and in its order: each
+    vertex sums its 12 edges axis by axis, then u, then v (a different
+    order moves vertices by more than the 1e-5 the host mesh is held to).
+
+    Returns (vertices (V, 3) f32, vertex_valid (V,), cells (V, 3) i32 owning
+    cell, triangles (T, 3) i32, tri_valid (T,), n_vertices () i32,
+    n_triangles () i32), padded rows zero; V = max_vertices, T = 2 *
+    (max_triangles // 2).
+    """
+    tsdf, weight = state.tsdf, state.weight
+    device = tsdf.device
+    X, Y, Z = tsdf.shape
+    CX, CY, CZ = X - 1, Y - 1, Z - 1
+    obs = (weight > 0) & (tsdf.abs() < config.truncation_distance_m)
+    signs = tsdf >= 0
+
+    all_obs = torch.ones((CX, CY, CZ), dtype=torch.bool, device=device)
+    any_pos = torch.zeros_like(all_obs)
+    any_neg = torch.zeros_like(all_obs)
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                all_obs &= _corner(obs, dx, dy, dz)
+                s = _corner(signs, dx, dy, dz)
+                any_pos |= s
+                any_neg |= ~s
+    active = all_obs & any_pos & any_neg
+
+    # Per cell, the mean of its edges' zero crossings. A crossing on an edge
+    # along ``axis`` at corner offset a sits at (cell + a) + t along ``axis``;
+    # each coordinate's sum runs over the edges in the JAX package's order.
+    base = [torch.arange(n, dtype=torch.float32, device=device).reshape(shape)
+            for n, shape in ((CX, (CX, 1, 1)), (CY, (1, CY, 1)), (CZ, (1, 1, CZ)))]
+    acc = [torch.zeros((CX, CY, CZ), dtype=torch.float32, device=device) for _ in range(3)]
+    counts = torch.zeros((CX, CY, CZ), dtype=torch.float32, device=device)
+    for axis in range(3):
+        for u in (0, 1):
+            for v in (0, 1):
+                a = [u, v]
+                a.insert(axis, 0)
+                b = [u, v]
+                b.insert(axis, 1)
+                va = _corner(tsdf, *a)
+                vb = _corner(tsdf, *b)
+                crossing = (va >= 0) != (vb >= 0)
+                denom = va - vb
+                big = denom.abs() > 1e-12
+                t = torch.where(big, va / torch.where(big, denom, 1.0), 0.5)
+                for k in range(3):
+                    point = base[k] + float(a[k])
+                    if k == axis:
+                        point = point + t
+                    acc[k] = acc[k] + torch.where(crossing, point, 0.0)
+                counts = counts + crossing.to(torch.float32)
+    centers = torch.stack(acc, dim=-1) / counts.clamp(min=1.0)[..., None]
+    # origin + (centers + 0.5) * voxel, rounded once as the fused multiply-add
+    # that XLA emits for it: float64 holds the fp32 product exactly.
+    origin = torch.tensor(config.aabb_min_m, dtype=torch.float32, device=device)
+    voxel = torch.tensor(config.voxel_size_m, dtype=torch.float32, device=device)
+    positions = (origin.double() + (centers + 0.5).double() * voxel.double()).to(torch.float32)
+
+    flat_active = active.reshape(-1)
+    n_vertices = flat_active.sum().to(torch.int32)
+    sel = _nonzero_static(flat_active, max_vertices, 0)
+    vertex_valid = torch.arange(max_vertices, device=device) < n_vertices
+    vertices = torch.where(vertex_valid[:, None], positions.reshape(-1, 3)[sel], 0.0)
+    cells = torch.stack([sel // (CY * CZ), (sel // CZ) % CY, sel % CZ], dim=-1).to(torch.int32)
+    cells = torch.where(vertex_valid[:, None], cells, 0)
+
+    # Cell -> compact vertex id (-1: none). Padded ``sel`` rows are 0 and
+    # would write -1 over cell 0's id: they are dropped instead.
+    vid = _scatter_drop(torch.full((CX * CY * CZ,), -1, dtype=torch.int32, device=device),
+                        sel, vertex_valid,
+                        torch.arange(max_vertices, dtype=torch.int32, device=device))
+    # Padded by one -1 cell on every side: the four cells around a grid edge
+    # are then slices, and a cell outside the lattice reads -1.
+    vid = torch.nn.functional.pad(vid.reshape(CX, CY, CZ), (1, 1, 1, 1, 1, 1), value=-1)
+
+    # Quads per crossing grid edge, the three axes concatenated.
+    quad_ids, quad_flags, quad_flips = [], [], []
+    dims = (X, Y, Z)
+    for axis in range(3):
+        sl_a = [slice(0, X), slice(0, Y), slice(0, Z)]
+        sl_b = list(sl_a)
+        sl_a[axis] = slice(0, dims[axis] - 1)
+        sl_b[axis] = slice(1, dims[axis])
+        ea = signs[tuple(sl_a)]
+        eb = signs[tuple(sl_b)]
+        ok = (ea != eb) & obs[tuple(sl_a)] & obs[tuple(sl_b)]
+        edge_shape = ok.shape
+        o1, o2 = [k for k in range(3) if k != axis]
+        ids4 = []
+        for d1 in (0, 1):
+            for d2 in (0, 1):
+                # Edge e's cell e - d1 * e_o1 - d2 * e_o2 is padded cell
+                # e + 1 - d1 * e_o1 - d2 * e_o2.
+                start = [1, 1, 1]
+                start[o1] -= d1
+                start[o2] -= d2
+                cid = vid[tuple(slice(s, s + n) for s, n in zip(start, edge_shape))]
+                ok = ok & (cid >= 0)
+                ids4.append(cid.reshape(-1))
+        quad_ids.append(torch.stack(ids4, dim=-1))  # (E, 4)
+        quad_flags.append(ok.reshape(-1))
+        # (o1, o2) for axis 1 is (0, 2): x-hat cross z-hat = -y-hat, a
+        # left-handed quad frame around the edge: its winding is inverted so
+        # all faces orient consistently.
+        quad_flips.append(ea.reshape(-1) ^ (axis == 1))
+    quad_ids = torch.cat(quad_ids, dim=0)
+    quad_flags = torch.cat(quad_flags, dim=0)
+    quad_flips = torch.cat(quad_flips, dim=0)
+
+    max_quads = max_triangles // 2
+    n_quads = quad_flags.sum().to(torch.int32)
+    qsel = _nonzero_static(quad_flags, max_quads, 0)
+    quad_valid = torch.arange(max_quads, device=device) < n_quads
+    q = quad_ids[qsel]  # (Q, 4), order (0,0), (0,1), (1,0), (1,1)
+    flips = quad_flips[qsel][:, None]
+    q00, q01, q10, q11 = q.unbind(dim=1)
+    t1 = torch.where(flips, torch.stack([q00, q10, q11], 1), torch.stack([q00, q11, q10], 1))
+    t2 = torch.where(flips, torch.stack([q00, q11, q01], 1), torch.stack([q00, q01, q11], 1))
+    triangles = torch.cat([t1, t2], dim=0)
+    tri_valid = torch.cat([quad_valid, quad_valid], dim=0)
+    triangles = torch.where(tri_valid[:, None], triangles, 0)
+    return vertices, vertex_valid, cells, triangles, tri_valid, n_vertices, n_quads * 2
+
+
+# -----------------------------------------------------------------------------
+# Dense views (nvblox's layer views)
+# -----------------------------------------------------------------------------
+
+
+def _query_pool_dense(page_table: torch.Tensor, pool: torch.Tensor,
+                      pool_weight: torch.Tensor, config: MappingConfig) -> torch.Tensor:
+    """(X, Y, Z, C) fp32 view of a page pool; zero where unallocated or
+    unweighted. One flat (page * B^3 + slot) row index per voxel gathers
+    from the pool seen as (P * B^3, C): no index per channel."""
+    X, Y, Z = config.grid_shape
+    b = config.block_size
+    device = pool.device
+    page = page_table.repeat_interleave(b, 0).repeat_interleave(b, 1).repeat_interleave(b, 2)
+    page = page.reshape(-1).long()
+    r = [torch.arange(n, device=device) % b for n in (X, Y, Z)]
+    slot = ((r[0][:, None, None] * b + r[1][None, :, None]) * b + r[2][None, None, :]).reshape(-1)
+    rows = page.clamp(min=0) * b**3 + slot
+    valid = (page >= 0) & (pool_weight.reshape(-1)[rows] > 0)
+    values = pool.reshape(-1, pool.shape[-1]).index_select(0, rows).to(torch.float32)
+    return values.masked_fill_(~valid[:, None], 0.0).reshape(X, Y, Z, pool.shape[-1])
+
+
+def query_features_dense(state: VoxelGridState, config: MappingConfig) -> torch.Tensor:
+    """Dense (X, Y, Z, F) fp32 per-voxel features; unallocated voxels are zero
+    (nvblox's ``feature_layer_view`` -> ``convert_layer_to_dense_tensor``).
+    Full 768-d grids are gigabytes: X * Y * Z * F * 4 bytes."""
+    return _query_pool_dense(state.page_table, state.feat, state.feat_weight, config)
+
+
+def query_colors_dense(state: VoxelGridState, config: MappingConfig) -> torch.Tensor:
+    """Dense (X, Y, Z, 3) fp32 per-voxel colors; unallocated voxels are zero."""
+    return _query_pool_dense(state.page_table, state.color, state.color_weight, config)
+
+
+def query_tsdf_dense(state: VoxelGridState, config: MappingConfig) -> torch.Tensor:
+    """Dense (X, Y, Z) TSDF, unobserved voxels ``config.unobserved_value``
+    (nvblox's ``convert_layer_to_dense_tensor``)."""
+    return torch.where(state.weight > 0, state.tsdf, config.unobserved_value)
 
 
 # -----------------------------------------------------------------------------

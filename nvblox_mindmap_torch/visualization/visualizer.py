@@ -1,27 +1,37 @@
-"""Headless visualization: PLY point-cloud export and PCA / attention colors.
+"""Headless visualization: PLY point-cloud export, PCA / attention colors,
+image grids and frame sequences.
 
-The port's own copy of the parts of
-``nvblox_mindmap_tpu/visualization/visualizer.py`` that the open-loop app
-and the experiments reach (upstream ``mindmap/visualization/*``, whose
-Open3D windows this replaces with files), host numpy as there:
+The port's own copy of ``nvblox_mindmap_tpu/visualization/visualizer.py``
+(upstream ``mindmap/visualization/*``, whose Open3D windows this replaces
+with files), host numpy as there:
 
 - ``save_pointcloud_ply``: ASCII PLY with per-point colors (feature-PCA or
   attention-weight colormaps), loadable in any viewer;
 - ``get_voxel_mesh``: a cube mesh per voxel centre;
 - the pink-green colour map and ``attention_to_colors``;
 - ``compute_pca_basis_from_dataset``: one PCA basis over a loader's vertex
-  features.
+  features;
+- ``TensorVisualizer``: named tensors dumped as PNG grids (and to wandb when
+  asked);
+- ``VideoWriter``: frames collected and written on close.
 
-``TensorVisualizer`` and ``VideoWriter`` (PNG grids, wandb and mp4 through
-``imageio``) are not ported yet (ROADMAP.md, queue 1).
+PNGs go through the port's own writer (``data/item_io.encode_png``), not
+``imageio``. The port has no video encoder: ``VideoWriter.close`` writes
+the frames as numbered PNGs, which is what the JAX package's writer falls
+back to when no mp4 codec is found.
 """
 from __future__ import annotations
 
-from typing import Optional
+import logging
+import os
+from typing import Dict, Optional
 
 import numpy as np
 
+from nvblox_mindmap_torch.data.item_io import encode_png
 from nvblox_mindmap_torch.image.pca import PcaProjection, apply_pca_return_projection, fit_pca
+
+logger = logging.getLogger("nvblox_mindmap_torch.visualization")
 
 
 def save_pointcloud_ply(
@@ -144,6 +154,101 @@ def attention_to_colors(weights: np.ndarray, min_weight: float = 0.0) -> np.ndar
     r = np.clip(2 * w, 0, 1)
     g = np.clip(2 * w - 1, 0, 1)
     return np.stack([r, g, np.zeros_like(w)], axis=-1).astype(np.float32)
+
+
+class TensorVisualizer:
+    """Named-tensor image logger: PNG grids under ``output_dir``, and wandb
+    images when ``use_wandb`` (imported only then; its absence raises)."""
+
+    def __init__(self, output_dir: Optional[str] = None, use_wandb: bool = False):
+        self.output_dir = output_dir
+        self.use_wandb = use_wandb
+        self.enabled = False
+        self._registered: Dict[str, tuple] = {}
+        self._values: Dict[str, np.ndarray] = {}
+
+    def enable(self):
+        self.enabled = True
+
+    def disable(self):
+        self.enabled = False
+
+    def register_tensor(self, name: str, shape, nrow: int = 8):
+        self._registered[name] = (tuple(shape), nrow)
+
+    def set(self, name: str, value, value_range=None):
+        if not self.enabled:
+            return
+        value = np.asarray(value)
+        if value_range is not None:
+            lo, hi = float(value_range[0]), float(value_range[1])
+            value = (value - lo) / max(hi - lo, 1e-12)
+        self._values[name] = value
+
+    def _to_grid(self, value: np.ndarray, nrow: int) -> np.ndarray:
+        """(N, H, W[, C]) -> single tiled (H', W', 3) image in [0, 1]."""
+        if value.ndim == 3:
+            value = value[..., None]
+        if value.shape[-1] == 1:
+            value = np.repeat(value, 3, axis=-1)
+        n, h, w, c = value.shape
+        rows = (n + nrow - 1) // nrow
+        grid = np.zeros((rows * h, nrow * w, 3), dtype=np.float32)
+        for i in range(n):
+            r, col = divmod(i, nrow)
+            grid[r * h : (r + 1) * h, col * w : (col + 1) * w] = value[i, ..., :3]
+        return np.clip(grid, 0, 1)
+
+    def flush(self, step: int, prefix: str = ""):
+        """Write all set tensors as PNG grids (and wandb images if enabled)."""
+        if not self._values:
+            return
+        wandb = None
+        if self.use_wandb:
+            try:
+                import wandb
+            except ImportError as e:
+                raise ImportError("TensorVisualizer(use_wandb=True) logs to wandb, which is "
+                                  "not installed") from e
+        for name, value in self._values.items():
+            nrow = self._registered.get(name, (None, 8))[1]
+            grid = self._to_grid(value, nrow)
+            if self.output_dir is not None:
+                os.makedirs(self.output_dir, exist_ok=True)
+                encode_png(os.path.join(self.output_dir, f"{prefix}{name}_{step}.png"),
+                           (grid * 255).astype(np.uint8))
+            if wandb is not None:
+                wandb.log({f"{prefix}{name}": wandb.Image(grid)}, step=step)
+        self._values.clear()
+
+
+class VideoWriter:
+    """Append frames; on close, write them as ``{base}_{i:05d}.png`` beside
+    ``path`` (upstream ``visualization.py:27`` writes an mp4; the port has
+    no video encoder)."""
+
+    def __init__(self, path: str, fps: int = 30):
+        self.path = path
+        self.fps = fps
+        self.frames = []
+
+    def add_frame(self, frame: np.ndarray):
+        frame = np.asarray(frame)
+        if frame.dtype != np.uint8:
+            frame = np.clip(frame * 255, 0, 255).astype(np.uint8)
+        self.frames.append(frame)
+
+    def close(self):
+        if not self.frames:
+            return
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        base, _ = os.path.splitext(self.path)
+        paths = [f"{base}_{i:05d}.png" for i in range(len(self.frames))]
+        for path, frame in zip(paths, self.frames):
+            encode_png(path, frame)
+        logger.warning("%s: wrote %d frames as PNGs (%s ...), not an mp4: the port has no "
+                    "video encoder", self.path, len(paths), paths[0])
+        self.frames = []
 
 
 def compute_pca_basis_from_dataset(

@@ -24,10 +24,14 @@
   not), runs the three checkpoint scripts on its ``best.ckpt`` and on a
   dataset, samples a language model through the flash op, and restores an
   orbax directory that the JAX package wrote (in this process, before).
+- A sixth, with ``jax``, ``flax``, ``imageio``, ``matplotlib`` and ``wandb``
+  blocked, writes a map with the port and runs ``visualize_nvblox_tensors``,
+  ``generate_reconstruction_figures``, ``convert_maps_usd`` (``--device cpu``)
+  and ``video_from_depth`` on it.
 - A scan of the port's sources and ``chip_smoke.py`` for such imports.
 - Entry points called without a device on a machine without CUDA raise
   rather than fall back to the CPU (the packed loader and serving too,
-  unless a CPU device is named).
+  unless a CPU device is named; the map tools and the probe too).
 """
 import ast
 import dataclasses
@@ -466,6 +470,67 @@ def test_clip_language_scripts_and_jax_orbax_run_without_jax(tmp_path):
     assert "LOADED []" in proc.stdout, proc.stdout
 
 
+RECONSTRUCTION = r"""
+import sys
+for name in {FORBIDDEN}:
+    sys.modules[name] = None  # any import of it now raises ImportError
+import glob
+import os
+import tempfile
+import numpy as np
+import torch
+from nvblox_mindmap_torch.data.item_io import decode_png, encode_png
+from nvblox_mindmap_torch.mapping.constants import MapperId, MappingConfig
+from nvblox_mindmap_torch.mapping.mapper import Mapper
+from nvblox_mindmap_torch.scripts import (
+    convert_maps_usd, generate_reconstruction_figures, video_from_depth,
+    visualize_nvblox_tensors)
+
+root = tempfile.mkdtemp()
+cfg = MappingConfig(voxel_size_m=0.02, aabb_min_m=(-0.5, -0.5, 0.5), aabb_max_m=(0.5, 0.5, 1.5),
+                    min_integration_distance_m=0.1, feature_dim=4, max_feature_pages=256)
+mapper = Mapper({MapperId.STATIC: cfg}, device="cpu")
+K = np.asarray([[64.0, 0, 32], [0, 64.0, 32], [0, 0, 1]], np.float32)
+rng = np.random.default_rng(0)
+depth = (1.0 + 0.02 * rng.standard_normal((64, 64))).astype(np.float32)
+mapper.add_depth_frame(depth, np.eye(4), K)
+mapper.add_color_frame(rng.uniform(size=(64, 64, 3)), np.eye(4), K)
+mapper.add_feature_frame(rng.uniform(size=(64, 64, 4)).astype(np.float32), np.eye(4), K)
+path = os.path.join(root, "0000.nvblox_map_static.nvblx")
+mapper.save_map(path)
+visualize_nvblox_tensors.main(["--map", path, "--output_dir", os.path.join(root, "viz"),
+                               "--device", "cpu"])
+assert decode_png(os.path.join(root, "viz", "tsdf_slice_0.png")).ndim == 3
+assert os.path.getsize(os.path.join(root, "viz", "surface.ply")) > 0
+generate_reconstruction_figures.main(["--map_path", path, "--output_dir",
+                                      os.path.join(root, "figs"), "--device", "cpu"])
+for kind in ("color_mesh", "feature_cubes_mesh"):
+    assert decode_png(os.path.join(root, "figs", f"0000_{kind}.png")).shape[2] == 3
+convert_maps_usd.main(["--input_dir", root, "--device", "cpu"])
+with open(os.path.join(root, "0000.nvblox_map_static.usda")) as f:
+    assert f.read().startswith("#usda 1.0")
+os.makedirs(os.path.join(root, "depth"))
+for i in range(3):
+    encode_png(os.path.join(root, "depth", f"{i}.wrist_depth.png"),
+               rng.integers(300, 2000, (16, 16)).astype(np.uint16))
+video_from_depth.main([os.path.join(root, "depth"), os.path.join(root, "out", "d.mp4")])
+assert len(glob.glob(os.path.join(root, "out", "d_*.png"))) == 3
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in {FORBIDDEN})
+print("LOADED", loaded)
+"""
+
+
+def test_reconstruction_tools_run_without_jax_imageio_matplotlib_wandb():
+    blocked = FORBIDDEN + ("imageio", "matplotlib", "wandb")
+    code = RECONSTRUCTION.replace("{FORBIDDEN}", repr(set(blocked)))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
 def _port_sources():
     paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "compare_flash_kernels.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "nvblox_mindmap_torch")):
@@ -496,7 +561,13 @@ def test_sources_import_nothing_of_jax():
                    "scripts/pack_dataset.py", "training/orbax_checkpoint.py",
                    "models/clip_resnet_fpn.py", "scripts/checkpoint_tools.py",
                    "scripts/extract_fpn_from_model.py",
-                   "scripts/extract_image_features.py"):
+                   "scripts/extract_image_features.py", "mapping/surface_nets.py",
+                   "geometry/pointcloud_utils.py", "visualization/paper_utils.py",
+                   "visualization/turbo_colormap.py", "data/comparisons.py",
+                   "scripts/visualize_nvblox_tensors.py",
+                   "scripts/generate_reconstruction_figures.py", "scripts/convert_maps_usd.py",
+                   "scripts/make_mp4_from_dataset.py", "scripts/video_from_depth.py",
+                   "scripts/visualize_keyposes.py", "scripts/place_grounding_probe.py"):
         assert os.path.join(ROOT, "nvblox_mindmap_torch", module) in sources, module
     for path in sources:
         with open(path) as f:
@@ -579,6 +650,35 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch, tmp_
     loader = PackedDeviceLoader(packed, mesh=make_data_mesh("cpu"))
     assert next(iter(loader))["vertices"].device == torch.device("cpu")
     assert make_sharded_infer_fn(model, bounds, ["cpu"]).copies == 0
+    # The map tools: each loads the map (or the model) on the card unless told.
+    from nvblox_mindmap_torch.mapping.voxel_grid import get_voxel_center_grids
+    from nvblox_mindmap_torch.scripts import (
+        convert_maps_usd,
+        generate_reconstruction_figures,
+        place_grounding_probe,
+        visualize_nvblox_tensors,
+    )
+    from nvblox_mindmap_torch.visualization.paper_utils import convert_maps_to_usd
+
+    maps = tmp_path / "maps"
+    maps.mkdir()
+    map_path = str(maps / "0000.nvblox_map_static.nvblx")
+    Mapper({MapperId.STATIC: mapping}, device="cpu").save_map(map_path)
+    fixture = os.path.join(ROOT, "tests", "test_data", "task_success", "cube_stacking",
+                           "last.ckpt")
+    for entry in (lambda: get_voxel_center_grids(mapping),
+                  lambda: Mapper.from_file(map_path),
+                  lambda: convert_maps_to_usd(str(maps)),
+                  lambda: convert_maps_usd.main(["--input_dir", str(maps)]),
+                  lambda: visualize_nvblox_tensors.main(["--map", map_path, "--output_dir",
+                                                         str(tmp_path / "v")]),
+                  lambda: generate_reconstruction_figures.main(
+                      ["--map_path", map_path, "--output_dir", str(tmp_path / "f")]),
+                  lambda: place_grounding_probe.main(["--checkpoint", fixture,
+                                                      "--scenes", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+    assert get_voxel_center_grids(mapping, "cpu").device == torch.device("cpu")
 
 
 def test_chip_smoke_refuses_without_cuda():
