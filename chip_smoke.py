@@ -4,8 +4,10 @@ policy, training, its training, open-loop, datagen and closed-loop apps,
 the task-success and spatial-memory experiments and the place-grounding
 probe with the committed trained policies, training from a packed epoch and
 under torchrun, batched serving, the CLIP ResNet-50 FPN extractor through
-the loop, the language layers, and the map's triangle mesh, dense views and
-the visualization, USD, video and dataset tools, on one NVIDIA GPU.
+the loop, the language layers, the map's triangle mesh, dense views and
+the visualization, USD, video and dataset tools, the closed loop through the
+simulator bridge with the Isaac Lab adapter served over it, and the decoder
+API, demo tools and workflow specs, on one NVIDIA GPU.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It
 
@@ -116,9 +118,16 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
 12. waits for the torchrun run (phase ``ddp``): the packed app run again
    under ``python -m torch.distributed.run --nproc_per_node 1`` (NCCL, world
    size 1) with ``--checkpoint_backend orbax``; its losses must equal the
-   in-process run's within 1e-5 relative, its ``last/`` must load at the
+   in-process run's within 1e-5 relative, its validation loss, distance and
+   rotation error the in-process run's as printed (6 decimals), its
+   ``last/`` must load at the
    last step with the in-process run's parameters (DDP_PARAM_ATOL), and a
-   run resumed from it must continue from its iteration;
+   run resumed from it must continue from its iteration. At one rank the
+   validation check holds the launch and the printed line: both runs take
+   the trainer's one eval path (``shard_batch`` and the sampler noise of
+   ``_eval_noise``) on the card, but nothing is split over ranks here; the
+   split of an eval batch over ranks is held under gloo on the CPU
+   (``tests/test_torch_parallel.py``);
 13. records one cube_stacking demo with the port's scripted expert in the
    port's scene world at 512x512 (the table camera as 'wrist', with
    segmentation and a scene.json) and runs the datagen app
@@ -151,7 +160,24 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    the kernels must match eager attention and the eval file must be written;
    then the ground-truth goals on the same demo must stack the cubes
    (success 1.0). It prints sim-step and goal times, the step's parts (the
-   scene render apart) and the idle share;
+   scene render apart) and the idle share. Then phase ``remote_loop`` runs
+   the same app, demo, checkpoint and backbone with its world behind the
+   port's simulator bridge: a spawned sim host (no torch) serves the demo's
+   scene world on loopback through ``serve_environment`` and the app steps a
+   ``RemoteEnvironment``. Its goals must equal the in-process run's bit for
+   bit, its success too, and every goal launch 23 + 80 flash calls; it
+   prints the sim step through the bridge beside the in-process one, the
+   bridge's own ms and MB per step, the goal p50 and the idle share; then
+   ``IsaacLabEnvironment`` over a recording stand-in gym env, arm and
+   humanoid, served through the bridge a few steps each: every action a CPU
+   (1, 8) / (1, 37) tensor, the 37-d ones round-tripping through
+   ``HumanoidAction``. Then phase ``runtime_tools`` (host work):
+   ``runtime.decode_png_batch`` over the demo's PNGs at 1 / 4 / 8 threads
+   equal to one-by-one decoding, ``decode_zstd_pickle`` on its items,
+   ``benchmark_decompression`` at its defaults, ``tar_demos`` there and
+   back with every byte equal, the HTML report of the eval file,
+   ``plot_humanoid_keyposes`` on a demo of the port's humanoid recorder,
+   ``hdf5_tools`` and the workflow specs;
 15. serves 8 flagship requests per call (phase ``serving``): the flagship
    model (2 cameras, 4096 context and 820 self-attention tokens) through
    ``parallel/serving.make_sharded_infer_fn``, DDIM-10: the p50 per call,
@@ -1641,7 +1667,8 @@ def host_libraries():
         libzstd=ctypes.util.find_library("zstd"), libpng=ctypes.util.find_library("png16"),
         cc=shutil.which("cc") or shutil.which("gcc"),
         python_modules={name: importlib.util.find_spec(name) is not None
-                        for name in ("zstandard", "imageio", "PIL", "wandb", "matplotlib")})
+                        for name in ("zstandard", "imageio", "PIL", "wandb", "matplotlib",
+                                     "h5py")})
 
 
 def loader_epochs(loader, epochs=APP_LOADER_EPOCHS):
@@ -1864,11 +1891,22 @@ DDP_APART_SHARE = 1e-3
 SERVING_BATCH = 8
 SERVING_CALLS = 10
 LOSS_LINE = r"step (\d+)/\d+ \(epoch \d+\): total (-?[0-9.]+)"
+# The trainer's validation line: step, loss, distance (m), rotation error (deg).
+VAL_LINE = r"\[val\] step (\d+): loss (\S+), distance (\S+) m, rot err (\S+) deg"
+VAL_PRINT_ATOL = 1e-6  # the line prints 6 decimals
+
+
+def val_lines(text):
+    """step -> (loss, distance, rotation error) of every validation line."""
+    import re
+
+    return {int(m[0]): tuple(float(v) for v in m[1:]) for m in re.findall(VAL_LINE, text)}
 
 
 class loss_lines:
     """Within the block, the train losses that the trainer logs (step ->
-    total), read from its progress lines as a torchrun run's are."""
+    total), read from its progress lines as a torchrun run's are, and its
+    validation lines (``val``: step -> loss, distance, rotation error)."""
 
     def __enter__(self):
         import logging
@@ -1876,11 +1914,13 @@ class loss_lines:
 
         class Handler(logging.Handler):
             def emit(handler, record):
-                match = re.search(LOSS_LINE, record.getMessage())
+                message = record.getMessage()
+                match = re.search(LOSS_LINE, message)
                 if match:
                     self.losses[int(match.group(1))] = float(match.group(2))
+                self.val.update(val_lines(message))
 
-        self.losses, self.handler = {}, Handler()
+        self.losses, self.val, self.handler = {}, {}, Handler()
         self.logger = logging.getLogger("nvblox_mindmap_torch.trainer")
         self.logger.addHandler(self.handler)
         return self
@@ -2057,18 +2097,20 @@ def run_packed_train(root, flags):
           async_checkpoint=dict(mb=ckpt_mb, save_returns_s=save_s, wait_s=wait_s,
                                 restored_bit_equal=True),
           seconds=time.perf_counter() - t_phase)
+    if sorted(run_losses.val) != [PACKED_STEPS - 1]:
+        raise AssertionError(f"packed_train: validation lines {run_losses.val}")
     ddp = start_ddp(root, run_flags, run_losses.losses,
-                    os.path.join(logs, "checkpoints", "latest", "last.ckpt"))
+                    os.path.join(logs, "checkpoints", "latest", "last.ckpt"), run_losses.val)
     return launches, ddp
 
 
-def start_ddp(root, run_flags, losses, last_ckpt):
+def start_ddp(root, run_flags, losses, last_ckpt, val):
     """Start phase ``ddp``: the packed app run again under ``python -m
     torch.distributed.run`` (one rank: NCCL for the gradient all-reduce,
     gloo for the asynchronous checkpoint) with ``--checkpoint_backend
     orbax``, in a subprocess of its own session, its output to a file.
     ``finish_ddp`` waits for it and holds it to the in-process run
-    (``losses``, ``last_ckpt``)."""
+    (``losses``, ``last_ckpt``, the validation line ``val``)."""
     logs = os.path.join(root, "ddp_logs")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
            "1", "-m", "nvblox_mindmap_torch.apps.run_training"] + run_flags + [
@@ -2078,7 +2120,7 @@ def start_ddp(root, run_flags, losses, last_ckpt):
         proc = subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
                                 stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
     return dict(proc=proc, t0=time.perf_counter(), root=root, logs=logs, log=log,
-                run_flags=run_flags, losses=losses, last_ckpt=last_ckpt)
+                run_flags=run_flags, losses=losses, last_ckpt=last_ckpt, val=val)
 
 
 def stop_ddp(run):
@@ -2121,6 +2163,15 @@ def finish_ddp(run):
     loss_err = max(abs(ddp_losses[s] - losses[s]) / abs(losses[s]) for s in losses)
     if not loss_err <= DDP_LOSS_RTOL:
         raise AssertionError(f"ddp: losses {ddp_losses} vs {losses}")
+    # The validation lines, as printed: at one rank both runs take the same
+    # eval path, so this holds the launch and the print, not a split.
+    ddp_val = val_lines(output)
+    if sorted(ddp_val) != sorted(run["val"]):
+        raise AssertionError(f"ddp: validation lines {ddp_val} vs {run['val']}")
+    val_err = max(abs(a - b) - DDP_LOSS_RTOL * abs(b) for s in ddp_val
+                  for a, b in zip(ddp_val[s], run["val"][s]))
+    if not val_err <= VAL_PRINT_ATOL:
+        raise AssertionError(f"ddp: validation {ddp_val} vs the in-process {run['val']}")
     ckpt_dir = os.path.realpath(os.path.join(logs, "checkpoints", "latest"))
     written = sorted(os.listdir(ckpt_dir))
     if not {"best", "last", "training_args.json"} <= set(written):
@@ -2165,6 +2216,8 @@ def finish_ddp(run):
           backend="cpu:gloo,cuda:nccl", world_size=1, steps=PACKED_STEPS, run_s=run_s,
           side_by_side_with="task_success, spatial_memory",
           losses_max_rel_diff=loss_err, losses_bit_equal=ddp_losses == losses,
+          validation=dict(torchrun=ddp_val, in_process=run["val"],
+                          equal_as_printed=ddp_val == run["val"]),
           checkpoint_backend="orbax", written=written, last_iter=step,
           last_params_max_abs_diff=param_err, last_params_apart=apart,
           last_params_apart_share=apart_share, best_loss=best,
@@ -2650,7 +2703,8 @@ def run_closed_loop_app(root, checkpoint, npz):
     the scene world, with the training app's best.ckpt: the app's flagship
     (rgbd_and_mesh, the ego camera at IMAGE, 2048 sampled 768-d vertices,
     RADIO mapping features), DDIM-10. Then the ground-truth goals on the
-    same demo. Returns each kernel's launches over the policy run."""
+    same demo. Returns each kernel's launches over the policy run, and the
+    run's goals, summary and sim-step p50 (for phase ``remote_loop``)."""
     import collections
     import contextlib
     import json
@@ -2674,6 +2728,7 @@ def run_closed_loop_app(root, checkpoint, npz):
     t_phase = time.perf_counter()
     times = collections.defaultdict(list)
     last = {}
+    predicted = []
 
     def timed(name, fn, keep=False):
         def wrapper(*args, **kwargs):
@@ -2684,6 +2739,8 @@ def run_closed_loop_app(root, checkpoint, npz):
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             times[name].append((time.perf_counter() - t0) * 1e3)
+            if keep:
+                predicted.append([np.array(g, copy=True) for g in out])
             return out
         return wrapper
 
@@ -2786,7 +2843,458 @@ def run_closed_loop_app(root, checkpoint, npz):
                                ("render", "decay", "feature_fn", "integrate", "env_step")}),
           goal=summary_ms(times["goal"]), idle=idle,
           gt=dict(summary=gt, app_ms=gt_ms), seconds=time.perf_counter() - t_phase)
+    return counts, dict(goals=predicted, summary=summary,
+                        sim_step_p50_ms=statistics.median(times["sim_step"]),
+                        render_p50_ms=statistics.median(times["render"]))
+
+
+# Phase remote_loop: the closed-loop app's flagship through the simulator
+# bridge, its sim host a spawned process that serves the scene world.
+REMOTE_TIMEOUT_S = 120  # any one bridge call, and the sim host's start and end
+ADAPTER_STEPS = 4  # served adapter steps per embodiment
+
+
+def serve_scene_world(demo, conn):
+    """The sim host of phase ``remote_loop`` (a spawned process): the scene
+    world of ``demo`` served through the port's ``serve_environment`` on
+    loopback, port 0; sends (port, the world's object half extents), then,
+    once the client has closed the bridge, the seconds the world spent in
+    each method and whether torch was imported (it must not be: the sim
+    host never touches the card)."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    sys.path.insert(0, ROOT)
+    from nvblox_mindmap_torch.closed_loop.remote_env import serve_environment
+    from nvblox_mindmap_torch.closed_loop.scripted import env_from_scene_json
+
+    world = env_from_scene_json(demo)
+    seconds, calls = {}, {}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+                calls[name] = calls.get(name, 0) + 1
+        return wrapper
+
+    for name in ("reset", "step", "get_robot_state", "get_policy_state", "get_cameras",
+                 "get_object_poses", "is_success"):
+        setattr(world, name, timed(name, getattr(world, name)))
+    server = serve_environment(world, port=0)
+    try:
+        conn.send((server.port, getattr(world, "object_half", None)))
+        stopped = server.wait(timeout=1800)
+    finally:
+        server.stop()
+    conn.send(dict(stopped=stopped, seconds=seconds, calls=calls,
+                   torch_imported="torch" in sys.modules))
+    conn.close()
+
+
+class StandInGymEnv:
+    """A recording stand-in for an Isaac Lab gym env (the surface
+    ``IsaacLabEnvironment`` steps): it keeps every action it is stepped
+    with, and the robot's eef poses, jaws or hand joints and head follow the
+    action. Its state lives in torch tensors on the CPU, as a simulator's
+    would."""
+
+    def __init__(self, humanoid):
+        import torch
+
+        self.unwrapped = self.scene = self
+        self.humanoid = humanoid
+        self.actions = []
+        self.resets = 0
+        self.state = torch.zeros(37 if humanoid else 9)
+        self.state[3] = 1.0
+        if humanoid:
+            self.state[21] = 1.0
+
+    def reset_to(self, state, env_ids, is_relative):
+        self.resets += 1
+
+    def reset(self):
+        self.resets += 1
+
+    def step(self, action):
+        from nvblox_mindmap_torch.embodiments.humanoid_hand import HumanoidJointIndices
+
+        self.actions.append(action)
+        flat = action.reshape(-1)
+        if not self.humanoid:
+            self.state[:7] = flat[:7]
+            self.state[7:9] = 0.0 if float(flat[7]) < 0 else 0.04
+            return
+        hands = flat[15:37]
+        self.state[0:7], self.state[18:25], self.state[36] = flat[0:7], flat[7:14], flat[14]
+        self.state[7:18] = hands[HumanoidJointIndices.left_joints_in_combined_hands_tensor_indices]
+        self.state[25:36] = hands[
+            HumanoidJointIndices.right_joints_in_combined_hands_tensor_indices]
+
+
+def drive_served_adapters():
+    """``IsaacLabEnvironment`` over the recording stand-in, for each
+    embodiment, served through the port's bridge (a thread of this process)
+    and driven by a ``RemoteEnvironment`` for ADAPTER_STEPS steps: every
+    recorded action is a CPU float32 (1, 8) or (1, 37) tensor and a 37-d one
+    round-trips through ``HumanoidAction.from_tensor`` exactly. Cameras,
+    labels and object poses through the adapter are held to the JAX
+    package's on the CPU (``tests/test_torch_bridges.py``)."""
+    import numpy as np
+    import torch
+
+    from nvblox_mindmap_torch.closed_loop.isaaclab_adapter import IsaacLabEnvironment
+    from nvblox_mindmap_torch.closed_loop.remote_env import RemoteEnvironment, serve_environment
+    from nvblox_mindmap_torch.embodiments.arm import ArmEmbodiment
+    from nvblox_mindmap_torch.embodiments.humanoid import HumanoidEmbodiment
+    from nvblox_mindmap_torch.embodiments.humanoid_hand import HumanoidAction
+
+    rng = np.random.default_rng(31)
+    out = {}
+    for name, humanoid in (("arm", False), ("humanoid", True)):
+        gym_env = StandInGymEnv(humanoid)
+        adapter = IsaacLabEnvironment(
+            gym_env, HumanoidEmbodiment() if humanoid else ArmEmbodiment(), {},
+            robot_state_fn=lambda env: env.state, initial_state={"demo": 0})
+        server = serve_environment(adapter, port=0)
+        try:
+            remote = RemoteEnvironment("127.0.0.1", server.port, timeout_s=REMOTE_TIMEOUT_S)
+            remote.reset()
+            remote.step(None)
+            for _ in range(ADAPTER_STEPS):
+                goal = rng.uniform(-0.5, 0.5, 17 if humanoid else 8).astype(np.float32)
+                for q in ((3, 7), (11, 15)) if humanoid else ((3, 7),):
+                    goal[q[0]:q[1]] /= np.linalg.norm(goal[q[0]:q[1]])
+                closed = (7, 15) if humanoid else (7,)
+                goal[list(closed)] = rng.uniform(0, 1, len(closed))
+                remote.step(goal)
+            state = remote.get_policy_state()
+            remote.close()
+            server.wait(REMOTE_TIMEOUT_S)
+        finally:
+            server.stop()
+        width = 37 if humanoid else 8
+        bad = [a for a in gym_env.actions if not (
+            isinstance(a, torch.Tensor) and a.device.type == "cpu"
+            and a.dtype == torch.float32 and tuple(a.shape) == (1, width))]
+        round_trip = all(HumanoidAction.from_tensor(a[0].numpy()).to_tensor().tobytes()
+                         == a[0].numpy().tobytes() for a in gym_env.actions) if humanoid else None
+        if (bad or len(gym_env.actions) != ADAPTER_STEPS + 1 or gym_env.resets != 1
+                or round_trip is False or state.shape != ((17,) if humanoid else (8,))):
+            raise AssertionError(f"remote_loop: served {name} adapter: {len(bad)} bad actions "
+                                 f"of {len(gym_env.actions)}, round trip {round_trip}, "
+                                 f"state {state.shape}")
+        out[name] = dict(actions=len(gym_env.actions), action_shape=[1, width],
+                         action_device="cpu", round_trip_exact=round_trip,
+                         bridge_calls=remote.calls,
+                         bridge_mb=(remote.bytes_sent + remote.bytes_received) / 1e6)
+    return out
+
+
+def run_remote_loop(root, checkpoint, npz, in_process):
+    """Phase ``remote_loop``: the closed-loop app's flagship (as phase 11,
+    same demo, best.ckpt and backbone .npz) on the card, its world a
+    ``RemoteEnvironment``: a spawned sim host serves the demo's scene world
+    on loopback. The goals must equal ``in_process``'s (phase 11's) bit for
+    bit, the success too, and every goal launch 23 + 80 flash calls. Then
+    the Isaac Lab adapter served through the bridge (``drive_served_adapters``).
+    Returns each kernel's launches."""
+    import collections
+    import contextlib
+    import multiprocessing
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from nvblox_mindmap_torch.apps import run_closed_loop_policy as app
+    from nvblox_mindmap_torch.closed_loop import policies
+    from nvblox_mindmap_torch.closed_loop.remote_env import RemoteEnvironment
+
+    t_phase = time.perf_counter()
+    demo = glob_files(root, "demo_*")[0]
+    ctx = multiprocessing.get_context("spawn")
+    conn, child_conn = ctx.Pipe()
+    host = ctx.Process(target=serve_scene_world, args=(demo, child_conn), daemon=True)
+    host.start()
+    try:
+        if not conn.poll(REMOTE_TIMEOUT_S):
+            raise AssertionError("remote_loop: the sim host did not start")
+        port, object_half = conn.recv()
+        remotes, times, goals, idle = [], collections.defaultdict(list), [], {}
+        call_s = collections.defaultdict(float)
+        real_call = RemoteEnvironment._call
+
+        def remote_world(demo_path):
+            env = RemoteEnvironment("127.0.0.1", port, timeout_s=REMOTE_TIMEOUT_S)
+            if object_half is not None:  # what the app reads of a scene world
+                env.object_half = object_half
+            remotes.append(env)
+            return env
+
+        def timed_call(self, method, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real_call(self, method, **kwargs)
+            finally:
+                call_s[method] += time.perf_counter() - t0
+
+        def timed(name, fn, keep=False):
+            def wrapper(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+                if keep:
+                    goals.append([np.array(g, copy=True) for g in out])
+                return out
+            return wrapper
+
+        def profiled(fn):
+            def wrapper(*args, **kwargs):
+                torch.cuda.synchronize()
+                with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    out = fn(*args, **kwargs)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                busy = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA)
+                idle.update(wall_ms=wall, device_busy_ms=busy, device_idle_share=1 - busy / wall)
+                return out
+            return wrapper
+
+        eval_path = os.path.join(root, "remote_loop_eval.json")
+        flags = ["--task", LOOP_TASK, "--dataset", root, "--demos_closed_loop", "0",
+                 "--checkpoint", checkpoint, "--backbone_weights", npz,
+                 "--serving_scheduler", "ddim", "--serving_num_inference_steps",
+                 str(CLOSED_LOOP_STEPS), "--max_num_steps_to_goal", str(LOOP_STEPS_TO_GOAL),
+                 "--terminate_after_n_steps", str(LOOP_STEPS), "--eval_file_path", eval_path]
+        Policy = policies.NvbloxDiffuserActorPolicy
+        with contextlib.ExitStack() as patches:
+            for owner, name, value in (
+                    (app, "env_from_scene_json", remote_world),
+                    (RemoteEnvironment, "_call", timed_call),
+                    (Policy, "step", timed("sim_step", Policy.step)),
+                    (Policy, "get_new_goal", timed("goal", Policy.get_new_goal, keep=True)),
+                    (app, "run_closed_loop_policy", profiled(app.run_closed_loop_policy))):
+                patches.enter_context(mock.patch.object(owner, name, value))
+            reset_flash_counts()
+            app_ms = host_ms(lambda: times["summary"].append(app.main(flags, "scene")))
+            counts = flash_counts()
+        for env in remotes:
+            env.close()
+        if not conn.poll(REMOTE_TIMEOUT_S):
+            raise AssertionError("remote_loop: the sim host did not stop")
+        host_stats = conn.recv()
+        host.join(REMOTE_TIMEOUT_S)
+    finally:
+        if host.is_alive():
+            host.terminate()
+            host.join()
+    summary = times.pop("summary")[0]
+    n_goals = len(goals)
+    T = CLOSED_LOOP_STEPS
+    expected = {"flash_attention_split": n_goals * (3 + 2 * T),
+                "flash_attention_tile": n_goals * 8 * T}
+    if n_goals < 3 or counts != expected:
+        raise AssertionError(f"remote_loop: {counts} flash launches over {n_goals} goals, "
+                             f"expected {expected}")
+    if host.exitcode != 0 or not host_stats["stopped"] or host_stats["torch_imported"]:
+        raise AssertionError(f"remote_loop: sim host exit {host.exitcode}, {host_stats}")
+    if len(remotes) != 1:
+        raise AssertionError(f"remote_loop: {len(remotes)} bridge connections, expected 1")
+    ref_goals = in_process["goals"]
+    equal = len(goals) == len(ref_goals) and all(
+        len(a) == len(b) and all(x.dtype == y.dtype and x.tobytes() == y.tobytes()
+                                 for x, y in zip(a, b)) for a, b in zip(goals, ref_goals))
+    if not equal:
+        diff = [float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                for a, b in zip(goals, ref_goals)]
+        raise AssertionError(f"remote_loop: {len(goals)} goals vs {len(ref_goals)} in process, "
+                             f"max abs diff per goal {diff}")
+    if (summary["success_rate"], summary.get("outcomes")) != (
+            in_process["summary"]["success_rate"], in_process["summary"].get("outcomes")):
+        raise AssertionError(f"remote_loop: summary {summary} vs {in_process['summary']}")
+    remote = remotes[0]
+    steps = len(times["sim_step"])
+    env_s = sum(host_stats["seconds"].values())
+    bridge_s = sum(call_s.values()) - env_s
+    adapters = drive_served_adapters()
+    phase("remote_loop", task=LOOP_TASK, model="rgbd_and_mesh", image=IMAGE, vertices=VERTICES,
+          feature_dim=FEATURE_DIM, sampler=f"ddim{T}", transport="tcp loopback",
+          sim_host="spawned process, scene world, no torch", steps=steps, goals=n_goals,
+          goals_equal_in_process=True, success_rate=summary["success_rate"],
+          launches=counts, launches_per_goal={k: n // n_goals for k, n in counts.items()},
+          app_ms=app_ms,
+          sim_step=dict(summary_ms(times["sim_step"]),
+                        in_process_p50_ms=in_process["sim_step_p50_ms"],
+                        in_process_render_p50_ms=in_process["render_p50_ms"]),
+          bridge=dict(calls=remote.calls, calls_per_step=remote.calls / steps,
+                      mb_sent=remote.bytes_sent / 1e6, mb_received=remote.bytes_received / 1e6,
+                      mb_per_step=(remote.bytes_sent + remote.bytes_received) / 1e6 / steps,
+                      round_trip_s={k: v for k, v in call_s.items()},
+                      sim_host_s=host_stats["seconds"], sim_host_calls=host_stats["calls"],
+                      own_ms_per_step=bridge_s * 1e3 / steps),
+          goal=summary_ms(times["goal"]), idle=idle, adapters=adapters,
+          seconds=time.perf_counter() - t_phase)
     return counts
+
+
+# Phase runtime_tools: the decoder API, the demo tools and the workflow specs
+# on the datagen demo and the closed-loop app's eval file (host work).
+DECODE_THREADS = (1, 4, 8)
+
+
+def tree_digest(root):
+    """relative path -> sha256 of every file under ``root``."""
+    import hashlib
+
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(dirpath, f)
+            digest = hashlib.sha256()
+            with open(path, "rb") as fh:
+                for block in iter(lambda: fh.read(1 << 24), b""):
+                    digest.update(block)
+            out[os.path.relpath(path, root)] = digest.hexdigest()
+    return out
+
+
+def run_runtime_tools(dataset, work):
+    """Phase ``runtime_tools``: ``runtime.decode_png_batch`` over the datagen
+    demo's PNGs at 1 / 4 / 8 threads (equal to ``item_io.decode_png`` one by
+    one; ms per PNG), ``decode_zstd_pickle`` against ``item_io.unpickle_zst``
+    on its items, ``benchmark_decompression`` at its defaults, ``tar_demos``
+    there and back (every file's bytes equal), the HTML report of the
+    closed-loop app's eval file, ``plot_humanoid_keyposes`` on a demo of the
+    port's humanoid recorder (the indices equal the embodiment's, the PNG
+    decoded), ``hdf5_tools`` (or its refusal without h5py) and the workflow
+    specs written and read back."""
+    import json
+
+    import numpy as np
+
+    from nvblox_mindmap_torch import runtime
+    from nvblox_mindmap_torch.closed_loop import scripted
+    from nvblox_mindmap_torch.data import item_io
+    from nvblox_mindmap_torch.data.keyposes import KeyposeDetectionMode
+    from nvblox_mindmap_torch.embodiments.humanoid import HumanoidEmbodiment
+    from nvblox_mindmap_torch.scripts import (
+        benchmark_decompression,
+        hdf5_tools,
+        plot_humanoid_keyposes,
+        publish_closed_loop_eval,
+        tar_demos,
+    )
+    from nvblox_mindmap_torch.workflows import submit
+
+    t_phase = time.perf_counter()
+    demo = glob_files(dataset, "demo_*")[0]
+    if not (runtime.ensure_built() and runtime.native_available()):
+        raise AssertionError("runtime_tools: the decoder's libraries do not load")
+    pngs = glob_files(demo, "*.png")
+    t0 = time.perf_counter()
+    serial = [item_io.decode_png(p) for p in pngs]
+    decode_ms = {"serial": (time.perf_counter() - t0) * 1e3 / len(pngs)}
+    for threads in DECODE_THREADS:
+        t0 = time.perf_counter()
+        batch = runtime.decode_png_batch(pngs + [os.path.join(demo, "missing.png")], threads)
+        decode_ms[threads] = (time.perf_counter() - t0) * 1e3 / len(pngs)
+        if batch[-1] is not None or any(
+                b is None or b.dtype != a.dtype or not np.array_equal(a, b)
+                for a, b in zip(serial, batch)):
+            raise AssertionError(f"runtime_tools: decode_png_batch at {threads} threads differs")
+    items = glob_files(demo, "*.zst")
+    for path in items:
+        ours, ref = runtime.decode_zstd_pickle(path), item_io.unpickle_zst(path)
+        if sorted(ours) != sorted(ref) or not all(
+                np.array_equal(ours[k], ref[k]) for k in ("vertices", "features")):
+            raise AssertionError(f"runtime_tools: decode_zstd_pickle differs on {path}")
+
+    t0 = time.perf_counter()
+    bench = benchmark_decompression.main([])
+    bench_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    tars = tar_demos.tar_demos(dataset, "0", os.path.join(work, "tars"))
+    untarred = tar_demos.untar_demos(os.path.join(work, "tars"), os.path.join(work, "untarred"))
+    source, copy = tree_digest(demo), tree_digest(untarred[0])
+    if source != copy or len(tars) != 1:
+        raise AssertionError(f"runtime_tools: untarred demo differs ({len(source)} files, "
+                             f"{len(copy)} back)")
+    tar_mb = os.path.getsize(tars[0]) / 1e6
+    tar_s = time.perf_counter() - t0
+    shutil.rmtree(os.path.join(work, "tars"))
+    shutil.rmtree(os.path.join(work, "untarred"))
+
+    eval_path = os.path.join(dataset, "closed_loop_eval.json")
+    with open(eval_path) as f:
+        summary = json.load(f)["summary"]
+    report = publish_closed_loop_eval.render_report([eval_path], os.path.join(work, "report",
+                                                                              "index.html"))
+    with open(report) as f:
+        html = f.read()
+    if f"{summary.get('success_rate', 0):.2%}" not in html:
+        raise AssertionError("runtime_tools: the report lacks the success rate")
+
+    t0 = time.perf_counter()
+    humanoid = os.path.join(work, "humanoid")
+    (demo_h,) = scripted.generate_drill_in_box_demos(humanoid, num_demos=1, seed=0,
+                                                     image_size=64)
+    keyposes = plot_humanoid_keyposes.analyze_demo(demo_h, os.path.join(work, "plots"))
+    expected = HumanoidEmbodiment().extract_keypose_indices(
+        plot_humanoid_keyposes.load_robot_states(demo_h), [],
+        KeyposeDetectionMode.HIGHEST_Z_OF_VERTICAL_MOTION_AND_HEAD_TURN)
+    figure = item_io.decode_png(os.path.join(work, "plots",
+                                             f"{os.path.basename(demo_h)}_keyposes.png"))
+    if (not np.array_equal(keyposes, expected) or len(keyposes) < 3
+            or figure.shape != plot_humanoid_keyposes.FIGURE_HW + (3,)):
+        raise AssertionError(f"runtime_tools: keyposes {keyposes}, figure {figure.shape}")
+    plot_s = time.perf_counter() - t0
+
+    hdf5 = "absent"
+    try:
+        import h5py
+    except ImportError:
+        try:
+            hdf5_tools.list_demos(os.path.join(work, "none.hdf5"))
+        except ImportError as e:
+            if "h5py" not in str(e):
+                raise
+    else:
+        path = os.path.join(work, "demos.hdf5")
+        with h5py.File(path, "w") as f:
+            for i in range(3):
+                f.create_group(f"data/demo_{i}").create_dataset("actions", data=np.full(4, i))
+        hdf5_tools.merge_hdf5_files([path, path], os.path.join(work, "merged.hdf5"))
+        hdf5 = hdf5_tools.list_demos(os.path.join(work, "merged.hdf5"))
+        if len(hdf5) != 6:
+            raise AssertionError(f"runtime_tools: merged {hdf5}")
+
+    specs = {}
+    for name, workflow in (
+            ("e2e", submit.make_e2e_workflow(LOOP_TASK, "demos.hdf5", work)),
+            ("train_and_eval", submit.make_train_and_eval_workflow(LOOP_TASK, dataset, "0",
+                                                                   "0", work))):
+        path = submit.write_workflow(workflow, os.path.join(work, f"{name}.json"))
+        with open(path) as f:
+            if json.load(f) != workflow:
+                raise AssertionError(f"runtime_tools: workflow {name} did not read back")
+        specs[name] = [s["command_line"] for s in workflow["stages"]]
+    phase("runtime_tools", demo_pngs=len(pngs), png_shapes=sorted({a.shape for a in serial}),
+          decode_ms_per_png=decode_ms, decode_batches_equal_serial=True,
+          zstd_items_equal=len(items), decompression=bench, decompression_s=bench_s,
+          tar=dict(files=len(source), mb=tar_mb, seconds=tar_s, bytes_equal=True),
+          report_bytes=len(html), humanoid_keyposes=[int(k) for k in keyposes],
+          keypose_figure=list(figure.shape), keypose_s=plot_s, hdf5=hdf5, workflows=specs,
+          seconds=time.perf_counter() - t_phase)
 
 
 # --------------------------------------------------------------------------
@@ -3878,9 +4386,12 @@ def main() -> int:
         dataset = os.path.join(work, "dataset")
         demo = run_datagen_app(dataset, npz)
         run_reconstruction(dataset, demo, work)
-        for kernel, n in run_closed_loop_app(dataset, os.path.join(work, "best.ckpt"),
-                                             npz).items():
-            launches[kernel] = launches.get(kernel, 0) + n
+        loop_launches, in_process = run_closed_loop_app(
+            dataset, os.path.join(work, "best.ckpt"), npz)
+        add_launches(launches, loop_launches)
+        add_launches(launches, run_remote_loop(dataset, os.path.join(work, "best.ckpt"), npz,
+                                               in_process))
+        run_runtime_tools(dataset, work)
     finally:
         stop_ddp(ddp)
         shutil.rmtree(work, ignore_errors=True)

@@ -227,11 +227,11 @@ def zstd_decompress(data: bytes, name: str = "<bytes>") -> memoryview:
         lib.ZSTD_freeDCtx(dctx)
 
 
-def zstd_compress(data: bytes) -> bytes:
+def zstd_compress(data: bytes, level: int = ZSTD_LEVEL) -> bytes:
     lib = _zstd()
     cap = lib.ZSTD_compressBound(len(data))
     dst = ctypes.create_string_buffer(cap)
-    n = _zstd_check(lib, lib.ZSTD_compress(dst, cap, data, len(data), ZSTD_LEVEL),
+    n = _zstd_check(lib, lib.ZSTD_compress(dst, cap, data, len(data), level),
                     "zstd compress")
     return dst.raw[:n]
 

@@ -420,6 +420,21 @@ def diffusion_train_loss(
     )
 
 
+def sampler_noise(cfg: DiffuserActorConfig, batch_size: int, num_steps: int,
+                  stochastic: bool, generator: torch.Generator, device
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``sample_trajectory``'s noise for ``batch_size`` rows and
+    ``num_steps`` steps, drawn from ``generator`` in its order: the initial
+    noise (B, L, G, 9), then, when ``stochastic``, the step noise
+    (T, B, L, G, 9) (else None)."""
+    shape = (batch_size, cfg.prediction_horizon, cfg.ngrippers, 9)
+    init_noise = torch.randn(shape, generator=generator, device=device)
+    step_noise = None
+    if stochastic:
+        step_noise = torch.randn((num_steps,) + shape, generator=generator, device=device)
+    return init_noise, step_noise
+
+
 @torch.no_grad()
 def sample_trajectory(
     model: DiffuserActor,
@@ -465,10 +480,7 @@ def sample_trajectory(
     if init_noise is None:
         if generator is None:
             raise ValueError("pass init_noise and step_noise, or a torch.Generator")
-        init_noise = torch.randn((B, L, G, 9), generator=generator, device=device)
-        if stochastic:
-            step_noise = torch.randn((T, B, L, G, 9), generator=generator,
-                                     device=device)
+        init_noise, step_noise = sampler_noise(cfg, B, T, stochastic, generator, device)
     elif stochastic and step_noise is None:
         raise ValueError("stochastic sampling with init_noise needs step_noise")
     trajectory = torch.as_tensor(init_noise, dtype=torch.float32, device=device)

@@ -108,21 +108,27 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def build_host(name: str, force: bool = False) -> str:
+    """Build the host helper ``csrc/{name}.c`` unless it is built (or
+    ``force``); returns its library's path."""
+    path = library_path(name, ".c")
+    if force or not os.path.exists(path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [find_cc(), "-O2", "-shared", "-fPIC", "-o", tmp,
+               os.path.join(CSRC_DIR, name + ".c")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        _finish_build(name, (proc, tmp), ".c")
+    return path
+
+
 def load_host(name: str) -> ctypes.CDLL:
     """The host helper ``csrc/{name}.c``'s library, built first if needed."""
     key = name + ".c"
     lib = _LOADED.get(key)
     if lib is None:
-        path = library_path(name, ".c")
-        if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [find_cc(), "-O2", "-shared", "-fPIC", "-o", tmp,
-                   os.path.join(CSRC_DIR, name + ".c")]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-            _finish_build(name, (proc, tmp), ".c")
-        lib = ctypes.CDLL(path)
+        lib = ctypes.CDLL(build_host(name))
         _LOADED[key] = lib
     return lib

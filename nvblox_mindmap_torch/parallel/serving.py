@@ -21,7 +21,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 
 from nvblox_mindmap_torch.device import DeviceLike, resolve_device
-from nvblox_mindmap_torch.models.diffuser_actor import prepare_inputs, sample_trajectory
+from nvblox_mindmap_torch.models.diffuser_actor import (
+    prepare_inputs,
+    sample_trajectory,
+    sampler_noise,
+)
 
 
 def make_sharded_infer_fn(
@@ -95,11 +99,8 @@ def make_sharded_infer_fn(
         if init_noise is None:
             if generator is None:
                 raise ValueError("pass init_noise (and step_noise), or a torch.Generator")
-            shape = (lead, cfg.prediction_horizon, cfg.ngrippers, 9)
-            init_noise = torch.randn(shape, generator=generator, device=generator.device)
-            if stochastic:
-                step_noise = torch.randn((steps,) + shape, generator=generator,
-                                         device=generator.device)
+            init_noise, step_noise = sampler_noise(cfg, lead, steps, stochastic, generator,
+                                                   generator.device)
         elif stochastic and step_noise is None:
             raise ValueError("stochastic sampling with init_noise needs step_noise")
         models = replicas(params)

@@ -35,7 +35,9 @@ and each rank takes its rows; after ``backward`` one all-reduce averages the
 trainable gradients (never the frozen backbone's) and the losses over the
 ranks, as JAX's psum over the data axis (the loss is a plain mean, so equal
 shards give the global mean); a step of n ranks is then the step of one.
-Eval metrics are averaged over the ranks. Only rank 0 logs and writes
+Each eval batch is sharded over the ranks the same way (trimmed to a
+multiple of the ranks, as JAX trims it), and its metrics averaged over
+them. Only rank 0 logs and writes
 msgpack checkpoints and ``training_args.json``; every rank enters the
 asynchronous backend's save.
 """
@@ -57,6 +59,7 @@ from nvblox_mindmap_torch.models.diffuser_actor import (
     diffusion_train_loss,
     prepare_inputs,
     sample_trajectory,
+    sampler_noise,
 )
 from nvblox_mindmap_torch.models.layers import set_layer_checkpointing
 from nvblox_mindmap_torch.models.loss import compute_loss, compute_metrics
@@ -310,13 +313,10 @@ class Trainer:
         cfg = self.model_config
         self.model.eval()
         prepared = prepare_inputs(batch, self.workspace_bounds, cfg, device=self.device)
-        n_steps = self.config.eval_num_inference_steps
-        if n_steps is not None:
-            # The sampler cannot take more steps than the train schedule has.
-            n_steps = min(n_steps, cfg.diffusion_timesteps)
         kind = self.config.eval_scheduler
         traj, head_yaw, _ = sample_trajectory(
-            self.model, prepared, None, num_inference_steps=n_steps, scheduler_kind=kind,
+            self.model, prepared, None, num_inference_steps=self._eval_num_steps(),
+            scheduler_kind=kind,
             stochastic=(kind == "ddpm"), normalized=True, init_noise=init_noise,
             step_noise=step_noise, generator=generator,
         )
@@ -337,44 +337,94 @@ class Trainer:
                                   rotation_form="quaternion")
         return losses, metrics, pred[..., :3], gt[..., :3]
 
+    def _eval_num_steps(self) -> Optional[int]:
+        n_steps = self.config.eval_num_inference_steps
+        if n_steps is not None:
+            # The sampler cannot take more steps than the train schedule has.
+            n_steps = min(n_steps, self.model_config.diffusion_timesteps)
+        return n_steps
+
+    def _eval_noise(self, rows: int, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """The sampler's noise for an eval batch of ``rows`` global rows,
+        drawn from ``generator`` as ``sample_trajectory`` draws it; the
+        rank's rows of it."""
+        kind = self.config.eval_scheduler
+        cfg = self.model_config
+        steps = cfg.schedules(kind=kind)[0].timesteps(self._eval_num_steps()).shape[0]
+        init_noise, step_noise = sampler_noise(cfg, rows, steps, kind == "ddpm", generator,
+                                               self.device)
+        noise = {"init_noise": local_rows(init_noise, self.mesh)}
+        if step_noise is not None:
+            noise["step_noise"] = local_rows(step_noise.transpose(0, 1),
+                                             self.mesh).transpose(0, 1)
+        return noise
+
     def evaluate_nsteps(self, loader, step: int, num_batches: int, split: str
                         ) -> Tuple[float, Dict[str, np.ndarray]]:
         """Run eval batches; returns (mean total loss, mean metrics), each
-        batch weighted by its size."""
+        batch weighted by its size.
+
+        Under a process group each rank evaluates its rows of every batch,
+        as the JAX trainer shards an eval batch over its mesh: the sampler's
+        noise is drawn for the whole batch and each rank takes its rows, so
+        n ranks give one process's numbers on batches that divide. A host
+        batch that does not divide is trimmed to a multiple of the ranks (a
+        warning says how many rows were dropped), one smaller than the
+        ranks is skipped; a batch already on the device is the rank's part
+        (a packed epoch's view, as in ``shard_batch``)."""
         n = len(loader) if num_batches == -1 else min(num_batches, len(loader))
+        world = self.mesh.world_size
         loss_sum = 0.0
         metric_sums: Dict[str, np.ndarray] = {}
         count = 0
+        figure_logged = False
         for i, batch in enumerate(loader):
             if i >= n:
                 break
+            bsz = batch["gripper_history"].shape[0]
+            if all(v is None or on_mesh_device(v, self.mesh) for v in batch.values()):
+                bsz *= world  # the rank's part: the global batch is the ranks' parts
+            elif bsz % world:
+                keep = bsz // world * world
+                if keep == 0:
+                    logger.warning("eval batch of %d samples < mesh size %d; skipped",
+                                   bsz, world)
+                    continue
+                logger.warning("eval batch of %d samples trimmed to %d (mesh size %d): "
+                               "%d tail samples dropped from the weighted val loss",
+                               bsz, keep, world, bsz - keep)
+                batch = {k: v[:keep] if getattr(v, "ndim", 0) > 0 and v.shape[0] == bsz else v
+                         for k, v in batch.items()}
+                bsz = keep
             generator = self._generator(self.config.seed + 17, step * 1000 + i)
             with Timer("step/eval/inference", synchronize=True):
-                losses, metrics, pred_pos, gt_pos = self.eval_step(batch, generator=generator)
+                losses, metrics, pred_pos, gt_pos = self.eval_step(
+                    shard_batch(batch, self.mesh), **self._eval_noise(bsz, generator))
                 total = float(losses["total"])
                 metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
-            if i == 0 and self.metric_logger is not None and self.mesh.rank == 0:
-                # The GT-vs-prediction figure of the first batch.
+            if not figure_logged and self.metric_logger is not None and self.mesh.rank == 0:
+                # The GT-vs-prediction figure of the first evaluated batch
+                # (rank 0's rows).
+                figure_logged = True
                 try:
                     self.metric_logger.log_trajectory_figure(
                         pred_pos.cpu().numpy(), gt_pos.cpu().numpy(), step, split=split)
                 except Exception as e:  # a figure must never stop training
                     logger.warning("trajectory figure failed: %s", e)
-            bsz = pred_pos.shape[0]
             loss_sum += total * bsz
             for k, v in metrics.items():
                 metric_sums[k] = metric_sums.get(k, 0.0) + v * bsz
             count += bsz
         if count == 0:
             return float("inf"), {}
-        # Across ranks (each evaluated its own batches; equal counts).
+        # Across ranks: each holds the means of its equal share of every batch.
         mean_metrics = mean_metrics_across_processes(
             {"loss": loss_sum / count, **{k: v / count for k, v in metric_sums.items()}})
         mean_loss = float(mean_metrics.pop("loss"))
         if self.metric_logger is not None and self.mesh.rank == 0:
             self.metric_logger.log(mean_metrics, step, prefix=f"{split}/")
             self.metric_logger.log({"loss": mean_loss}, step, prefix=f"{split}/")
-        logger.info("[%s] step %d: loss %.4f, distance %.4f m, rot err %.2f deg", split, step,
+        logger.info("[%s] step %d: loss %.6f, distance %.6f m, rot err %.6f deg", split, step,
                     mean_loss, float(mean_metrics.get("distance_m", np.nan)),
                     float(mean_metrics.get("rot_error_deg", np.nan)))
         return mean_loss, mean_metrics

@@ -28,6 +28,10 @@
   blocked, writes a map with the port and runs ``visualize_nvblox_tensors``,
   ``generate_reconstruction_figures``, ``convert_maps_usd`` (``--device cpu``)
   and ``video_from_depth`` on it.
+- A seventh, with those modules, ``h5py`` and CLIP's loader blocked, runs an
+  episode through the bridge, the Isaac Lab adapter over a stand-in env,
+  the humanoid hand, the decoder API, the new scripts and the workflow
+  specs (the HDF5 tools raise naming h5py; the golden recipe exits 1).
 - A scan of the port's sources and ``chip_smoke.py`` for such imports.
 - Entry points called without a device on a machine without CUDA raise
   rather than fall back to the CPU (the packed loader and serving too,
@@ -531,6 +535,143 @@ def test_reconstruction_tools_run_without_jax_imageio_matplotlib_wandb():
     assert "LOADED []" in proc.stdout, proc.stdout
 
 
+BRIDGES_AND_TOOLS = r"""
+import sys
+for name in {FORBIDDEN}:
+    sys.modules[name] = None  # any import of it now raises ImportError
+import io
+import json
+import os
+import tempfile
+import numpy as np
+import torch
+from nvblox_mindmap_torch.closed_loop.environment import CameraFrame, KinematicEnvironment
+from nvblox_mindmap_torch.closed_loop.evaluators import BasicEvaluator
+from nvblox_mindmap_torch.closed_loop.isaaclab_adapter import IsaacLabEnvironment
+from nvblox_mindmap_torch.closed_loop.policies import GroundTruthPolicy
+from nvblox_mindmap_torch.closed_loop.remote_env import (
+    RemoteEnvironment, decode_message, encode_message, serve_environment)
+from nvblox_mindmap_torch.closed_loop.runner import ClosedLoopConfig, run_one_episode
+from nvblox_mindmap_torch.data.item_io import encode_png
+from nvblox_mindmap_torch.embodiments.arm import ArmEmbodiment
+from nvblox_mindmap_torch.embodiments.humanoid_hand import HumanoidAction, HumanoidController
+from nvblox_mindmap_torch.runtime import decode_png_batch, native_available
+from nvblox_mindmap_torch.scripts import (
+    benchmark_decompression, convert_backbone_weights, hdf5_tools, make_backbone_golden,
+    plot_humanoid_keyposes, publish_closed_loop_eval, tar_demos)
+from nvblox_mindmap_torch.workflows.submit import make_e2e_workflow
+
+root = tempfile.mkdtemp()
+# An episode through the bridge, and a message through the codec.
+state = lambda pos: np.asarray([*pos, 1, 0, 0, 0, 0], np.float32)
+world = KinematicEnvironment(ArmEmbodiment(), state([0, 0, 0.3]), [np.asarray([0.2, 0, 0.3])])
+server = serve_environment(world, port=0)
+try:
+    remote = RemoteEnvironment("127.0.0.1", server.port, timeout_s=5)
+    evaluator = BasicEvaluator()
+    evaluator.start_demo("demo_0")
+    assert run_one_episode(remote, GroundTruthPolicy(state([0.2, 0, 0.3])[None]),
+                           ArmEmbodiment(), evaluator, ClosedLoopConfig(max_num_steps=20))
+    remote.close()
+finally:
+    server.stop()
+assert decode_message(encode_message({"a": np.bool_(True)})) == {"a": True}
+
+
+# The adapter over a stand-in env; the 37-d action round trip.
+class Env:
+    def __init__(self):
+        self.actions = []
+        self.unwrapped = self
+
+    def step(self, action):
+        self.actions.append(action)
+
+    def reset(self):
+        pass
+
+
+class Camera:
+    def get_rgb(self):
+        return np.full((4, 4, 3), 200, np.uint8)
+
+    def get_depth(self):
+        return np.ones((4, 4), np.float32)
+
+    def get_intrinsics(self):
+        return np.eye(3, dtype=np.float32)
+
+    def get_pose(self):
+        return np.zeros(3, np.float32), np.asarray([1, 0, 0, 0], np.float32)
+
+
+env = Env()
+adapter = IsaacLabEnvironment(env, ArmEmbodiment(), {"wrist": Camera()},
+                              robot_state_fn=lambda e: np.asarray([0.3, 0, 0.3, 1, 0, 0, 0,
+                                                                   0.04, 0.04], np.float32))
+adapter.step(None)
+assert env.actions[0].shape == (1, 8) and env.actions[0].device.type == "cpu"
+assert adapter.get_cameras()["wrist"].rgb.max() <= 1.0
+goal = np.zeros(17, np.float32)
+goal[3] = goal[11] = 1.0
+flat = HumanoidController()(goal).to_tensor()
+assert HumanoidAction.from_tensor(flat).to_tensor().tobytes() == flat.tobytes()
+
+# The runtime, the scripts and the workflow specs.
+demo = os.path.join(root, "ds", "demo_00000")
+os.makedirs(demo)
+rng = np.random.default_rng(0)
+for i in range(3):
+    encode_png(os.path.join(demo, f"{i}.pov_rgb.png"), rng.integers(0, 256, (8, 8, 3),
+                                                                   dtype=np.uint8))
+assert native_available()
+frames = decode_png_batch([os.path.join(demo, f"{i}.pov_rgb.png") for i in range(4)], 2)
+assert frames[3] is None and all(f.shape == (8, 8, 3) for f in frames[:3])
+assert set(benchmark_decompression.benchmark(32, 8, (1,), 1)[1]) >= {"ratio", "decode_ms"}
+t = np.linspace(0, 1, 60)
+states = np.zeros((60, 37), np.float32)
+states[:, 2] = states[:, 20] = 0.3 + 0.1 * np.sin(6 * t)
+states[:, 3] = states[:, 21] = 1.0
+states[20:40, 8:11] = -1.2
+states[:, 36] = 0.3 * np.sin(4 * t)
+for i, s in enumerate(states):
+    np.save(os.path.join(demo, f"{i}.robot_state.npy"), s)
+plot_humanoid_keyposes.analyze_demo(demo, os.path.join(root, "plots"))
+assert os.path.exists(os.path.join(root, "plots", "demo_00000_keyposes.png"))
+assert tar_demos.tar_demos(os.path.join(root, "ds"), "0", os.path.join(root, "tars"))
+with open(os.path.join(root, "eval.json"), "w") as f:
+    json.dump({"num_demos": 1, "num_successes": 1, "success_rate": 1.0}, f)
+publish_closed_loop_eval.render_report([os.path.join(root, "eval.json")],
+                                       os.path.join(root, "report.html"))
+assert len(make_e2e_workflow("cube_stacking", "d.hdf5", root)["stages"]) == 3
+try:
+    hdf5_tools.list_demos(os.path.join(root, "d.hdf5"))
+    raise AssertionError("hdf5_tools ran without h5py")
+except ImportError as e:
+    assert "h5py" in str(e)
+torch.hub.load = lambda *a, **k: (_ for _ in ()).throw(OSError("offline"))
+assert make_backbone_golden.main(["--output", os.path.join(root, "golden")]) == 1
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in {FORBIDDEN})
+print("LOADED", loaded)
+"""
+
+
+def test_bridges_runtime_and_scripts_run_without_jax_and_optional_modules():
+    """The bridge, the adapter, the humanoid hand, the decoder API, the new
+    scripts and the workflow specs with jax, the reference readers,
+    matplotlib, h5py and CLIP's loader blocked (the HDF5 tools then raise
+    naming h5py; the golden recipe exits 1 at the hub)."""
+    blocked = FORBIDDEN + ("zstandard", "imageio", "PIL", "matplotlib", "wandb", "h5py",
+                           "clip")
+    code = BRIDGES_AND_TOOLS.replace("{FORBIDDEN}", repr(set(blocked)))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
 def _port_sources():
     paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "compare_flash_kernels.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "nvblox_mindmap_torch")):
@@ -567,7 +708,14 @@ def test_sources_import_nothing_of_jax():
                    "scripts/visualize_nvblox_tensors.py",
                    "scripts/generate_reconstruction_figures.py", "scripts/convert_maps_usd.py",
                    "scripts/make_mp4_from_dataset.py", "scripts/video_from_depth.py",
-                   "scripts/visualize_keyposes.py", "scripts/place_grounding_probe.py"):
+                   "scripts/visualize_keyposes.py", "scripts/place_grounding_probe.py",
+                   "closed_loop/remote_env.py", "closed_loop/isaaclab_adapter.py",
+                   "embodiments/humanoid_hand.py", "runtime/__init__.py", "runtime/native.py",
+                   "workflows/__init__.py", "workflows/submit.py", "apps/__init__.py",
+                   "scripts/benchmark_decompression.py", "scripts/tar_demos.py",
+                   "scripts/publish_closed_loop_eval.py", "scripts/hdf5_tools.py",
+                   "scripts/plot_humanoid_keyposes.py", "scripts/convert_backbone_weights.py",
+                   "scripts/make_backbone_golden.py"):
         assert os.path.join(ROOT, "nvblox_mindmap_torch", module) in sources, module
     for path in sources:
         with open(path) as f:

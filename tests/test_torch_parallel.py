@@ -11,7 +11,13 @@
   step of lr) and like JAX, at ``tests/test_torch_training.py``'s
   tolerances: the losses of the JAX single-process ``Trainer``'s 2 steps
   within rtol 1e-5, and one step's averaged gradients against
-  ``jax.value_and_grad`` within atol 1e-5 / rtol 1e-4; each rank stages its rows of a packed epoch; the
+  ``jax.value_and_grad`` within atol 1e-5 / rtol 1e-4; each rank evaluates
+  its rows of an eval batch, a batch that does not divide is trimmed (one
+  smaller than the ranks skipped), each kept batch's loss is the one
+  process's on its kept rows (rtol 1e-6, DDIM and DDPM), and with the eval
+  step stubbed the loop's warnings, weighted loss, metrics and figure are
+  those of the JAX trainer's ``evaluate_nsteps`` over a 2-device mesh; each rank
+  stages its rows of a packed epoch; the
   asynchronous checkpoint backend saves collectively and restores bit for
   bit; the training app itself, packed and with ``--checkpoint_backend
   orbax``, gives the one-process app's losses and final parameters
@@ -21,6 +27,8 @@
   injected (1e-5), an indivisible batch raising, DDIM serving, and the
   parameters copied once per distinct object.
 """
+import dataclasses
+import logging
 import os
 import pickle
 import subprocess
@@ -72,7 +80,7 @@ torch.set_num_threads(1)
 from nvblox_mindmap_torch.apps import run_training as app
 from nvblox_mindmap_torch.data.packed import PackedEpoch, stage_to_device
 from nvblox_mindmap_torch.parallel import multihost as mh
-from nvblox_mindmap_torch.parallel.mesh import make_data_mesh, maybe_init_distributed
+from nvblox_mindmap_torch.parallel.mesh import make_data_mesh, maybe_init_distributed, shard_batch
 from nvblox_mindmap_torch.training.orbax_checkpoint import OrbaxCheckpointer
 from nvblox_mindmap_torch.training.trainer import Trainer, TrainerConfig
 from nvblox_mindmap_torch.utils.logging_utils import MetricLogger
@@ -103,12 +111,56 @@ out["losses"] = [float(trainer.train_one_step(batch, step, noise, timesteps)["to
                  for step, (batch, noise, timesteps) in enumerate(case["steps"])]
 out["state_dict"] = trainer.model.state_dict()
 out["val_loss"] = trainer.evaluate_nsteps([case["val"]], 1, 1, "val")[0]
+# The same batch given as the rank's part already on its device.
+out["val_loss_part"] = trainer.evaluate_nsteps(
+    [shard_batch(case["val"], make_data_mesh("cpu"))], 1, 1, "val")[0]
 ckptr = OrbaxCheckpointer(case["orbax_dir"])
 ckptr.save_best_and_last(trainer.model.state_dict(), trainer.optimizer.tensor_state(), 1,
                          out["val_loss"], None)
 ckptr.wait()
 out["staged_vertices"] = stage_to_device(PackedEpoch(case["packed"]),
                                          mesh=make_data_mesh("cpu"))["vertices"]
+
+# Eval batches of 1, 4 and 3 rows over the 2 ranks: the 1 skipped, the 4
+# sharded, the 3 trimmed to 2, each with its warning; DDIM and DDPM (step
+# noise).
+import dataclasses
+import logging
+
+warnings = []
+handler = logging.Handler(logging.WARNING)
+handler.emit = lambda record: warnings.append(record.getMessage())
+logging.getLogger("nvblox_mindmap_torch.trainer").addHandler(handler)
+config = trainer.config
+out["tail_val_loss"] = {}
+for kind in ("ddim", "ddpm"):
+    trainer.config = dataclasses.replace(config, eval_scheduler=kind)
+    out["tail_val_loss"][kind] = trainer.evaluate_nsteps(case["tail"], 2, -1, "val")[0]
+trainer.config = config
+out["tail_warnings"] = list(warnings)
+
+# The same batches with the eval step stubbed to a fixed function of the
+# rank's rows (STUB_EVAL), the figure recorded: held to JAX's evaluate_nsteps.
+exec(case["stub_eval"])
+
+
+class FigureRecorder:
+    figures = []
+
+    def log(self, *args, **kwargs):
+        pass
+
+    def log_trajectory_figure(self, pred, gt, step, split):
+        self.figures.append(pred)
+
+
+warnings.clear()
+trainer.eval_step = lambda batch, **noise: stub_eval_step(batch, torch.as_tensor)
+trainer.metric_logger = FigureRecorder()
+out["stub_val"] = trainer.evaluate_nsteps(case["tail"], 2, -1, "val")
+out["stub_figures"], out["stub_warnings"] = FigureRecorder.figures, list(warnings)
+del trainer.eval_step
+trainer.metric_logger = None
 
 recorded = []
 step_fn = Trainer.train_one_step
@@ -125,6 +177,23 @@ result = app.main(case["app_argv"])
 out["app_losses"], out["app_checkpoint_dir"] = recorded, result["checkpoint_dir"]
 out["app_state_dict"] = result["trainer"].model.state_dict()
 torch.save(out, os.path.join(os.environ["OUT"], f"rank{rank}.pt"))
+"""
+
+
+STUB_EVAL = r"""
+import numpy as np
+
+
+def stub_eval_step(batch, wrap=lambda x: x):
+    # (losses, metrics, predicted positions, ground-truth positions) that
+    # depend only on the rows given: the eval loop's trimming, skipping,
+    # weighting and figure choice, without the sampler. ``wrap`` makes each
+    # array the package's own.
+    g = np.asarray(batch["gripper_history"], dtype=np.float64)
+    losses = {"total": wrap(g.mean())}
+    metrics = {"distance_m": wrap(np.abs(g).mean()),
+               "per_gripper": wrap(g.mean(axis=(0, 1))[..., 0])}
+    return losses, metrics, wrap(g[..., :3]), wrap(g[..., 3:6])
 """
 
 
@@ -155,6 +224,7 @@ def two_ranks(tmp_path_factory):
     rng = np.random.default_rng(12)
     batches = [mesh_batch(rng, B=8) for _ in range(2)]
     val = mesh_batch(rng, B=4)
+    tail = [mesh_batch(rng, B=b) for b in (1, 4, 3)]
     jt = jtrainer.Trainer(jcfg, jtrainer.TrainerConfig(**FIELDS), BOUNDS,
                           mesh=jax_data_mesh(jax.devices()[:1]))
     params, opt_state = jt.init_state(batches[0])
@@ -178,7 +248,9 @@ def two_ranks(tmp_path_factory):
                       "--packed_num_batches", "3"])
     app_argv = APP + ["--dataset", str(data), "--packed_dataset", packed]
     case = dict(cfg=tcfg, fields=FIELDS, bounds=BOUNDS, state_dict=one.model.state_dict(),
-                steps=steps, grad_step=(batches[0], 0) + grad_ref[2:], val=val, orbax_dir=str(tmp / "orbax"), packed=packed,
+                steps=steps, grad_step=(batches[0], 0) + grad_ref[2:], val=val, tail=tail,
+                stub_eval=STUB_EVAL,
+                orbax_dir=str(tmp / "orbax"), packed=packed,
                 app_argv=app_argv + ["--base_log_dir", str(tmp / "logs2")])
     with open(tmp / "case.pkl", "wb") as f:
         pickle.dump(case, f)
@@ -205,10 +277,10 @@ def two_ranks(tmp_path_factory):
         proc.kill()
     assert proc.returncode == 0, err[-4000:]
     ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
-    return dict(ranks=ranks, tcfg=tcfg, jax_losses=jax_losses, one=one, one_losses=one_losses,
+    return dict(ranks=ranks, jcfg=jcfg, tcfg=tcfg, jax_losses=jax_losses, one=one, one_losses=one_losses,
                 jax_grad_loss=float(np.asarray(grad_ref[0]["total"])),
                 jax_grads=flax_to_state_dict(grad_ref[1]),
-                one_val_loss=one_val_loss, packed=packed, orbax_dir=case["orbax_dir"],
+                one_val_loss=one_val_loss, tail=tail, packed=packed, orbax_dir=case["orbax_dir"],
                 app_argv=app_argv, tmp=tmp)
 
 
@@ -251,9 +323,11 @@ def test_two_ranks_stage_their_rows(two_ranks):
 def test_two_ranks_save_asynchronously_and_restore(two_ranks):
     """The collective save: best/ and last/ restore, bit for bit, into one
     process; the eval loss averaged over the ranks is the one process's
-    (whose parameters differ by rounding: rtol 1e-6)."""
+    (whose parameters differ by rounding: rtol 1e-6), and each rank given its
+    part of the batch on its device gives the same loss."""
     ranks = two_ranks["ranks"]
     assert ranks[0]["val_loss"] == ranks[1]["val_loss"]
+    assert ranks[0]["val_loss_part"] == ranks[0]["val_loss"]  # each rank's part on its device
     np.testing.assert_allclose(ranks[0]["val_loss"], two_ranks["one_val_loss"], rtol=1e-6)
     assert sorted(os.listdir(two_ranks["orbax_dir"])) == ["best", "last"]
     for name in ("best", "last"):
@@ -263,6 +337,78 @@ def test_two_ranks_save_asynchronously_and_restore(two_ranks):
         assert trainer.optimizer.count == 2
         for key, value in trainer.model.state_dict().items():
             assert torch.equal(value, ranks[0]["state_dict"][key]), key
+
+
+def test_two_ranks_shard_eval_batches_and_trim_the_tail(two_ranks):
+    """Each rank evaluates its rows of every eval batch; a batch that does
+    not divide over the 2 ranks is trimmed (3 -> 2 rows), one smaller than
+    the ranks is skipped, with the warnings of the stubbed run (held to
+    JAX's in the next test); each kept batch's loss is the one process's on
+    its kept rows with the same noise, weighted by its kept rows."""
+    one = two_ranks["one"]
+    config = one.config
+    try:
+        for kind in ("ddim", "ddpm"):
+            one.config = dataclasses.replace(config, eval_scheduler=kind)
+            weighted, rows = 0.0, 0
+            for i, batch in enumerate(two_ranks["tail"]):
+                keep = batch["gripper_history"].shape[0] // 2 * 2
+                if keep == 0:
+                    continue
+                losses = one.eval_step({k: v[:keep] for k, v in batch.items()},
+                                       generator=one._generator(config.seed + 17, 2000 + i))[0]
+                weighted += float(losses["total"]) * keep
+                rows += keep
+            for res in two_ranks["ranks"]:
+                np.testing.assert_allclose(res["tail_val_loss"][kind], weighted / rows,
+                                           rtol=1e-6, atol=0)
+    finally:
+        one.config = config
+    for res in two_ranks["ranks"]:
+        assert res["tail_warnings"] == res["stub_warnings"] * 2
+
+
+def test_two_ranks_eval_loop_is_jaxs_over_a_two_device_mesh(two_ranks):
+    """The eval loop with its step stubbed to a fixed function of the rows it
+    is given (STUB_EVAL), over the same batches of 1, 4 and 3 rows: the port
+    on 2 ranks and the JAX trainer's ``evaluate_nsteps`` over a 2-device CPU
+    mesh skip and trim alike, with the same warnings, the same loss and
+    metrics weighted by the kept rows (float64: rtol 1e-12), and the
+    figure of the first evaluated batch (the port logs rank 0's rows)."""
+    stub = {}
+    exec(STUB_EVAL, stub)
+    figures, warnings = [], []
+
+    class FigureRecorder:
+        def log(self, *args, **kwargs):
+            pass
+
+        def log_trajectory_figure(self, pred, gt, step, split):
+            figures.append(np.asarray(pred))
+
+    jt = jtrainer.Trainer(two_ranks["jcfg"], jtrainer.TrainerConfig(**FIELDS), BOUNDS,
+                          mesh=jax_data_mesh(jax.devices()[:2]))
+    jt._eval_step = lambda params, batch, rng: stub["stub_eval_step"](batch)
+    jt.metric_logger = FigureRecorder()
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda record: warnings.append(record.getMessage())
+    jax_logger = logging.getLogger("nvblox_mindmap_tpu.trainer")
+    jax_logger.addHandler(handler)
+    try:
+        jax_loss, jax_metrics = jt.evaluate_nsteps(None, two_ranks["tail"], 2, -1, "val")
+    finally:
+        jax_logger.removeHandler(handler)
+    assert len(warnings) == 2 and len(figures) == 1
+    for res in two_ranks["ranks"]:
+        assert res["stub_warnings"] == warnings
+        loss, metrics = res["stub_val"]
+        np.testing.assert_allclose(loss, jax_loss, rtol=1e-12, atol=0)
+        assert sorted(metrics) == sorted(jax_metrics)
+        for k in metrics:
+            np.testing.assert_allclose(metrics[k], jax_metrics[k], rtol=1e-12, atol=0)
+    rank0, rank1 = (res["stub_figures"] for res in two_ranks["ranks"])
+    assert rank1 == [] and len(rank0) == 1
+    np.testing.assert_array_equal(rank0[0], figures[0][:len(figures[0]) // 2])
 
 
 def test_the_app_under_torchrun_trains_like_one_process(two_ranks, no_figures):
