@@ -7,7 +7,9 @@ under torchrun, batched serving, the CLIP ResNet-50 FPN extractor through
 the loop, the language layers, the map's triangle mesh, dense views and
 the visualization, USD, video and dataset tools, the closed loop through the
 simulator bridge with the Isaac Lab adapter served over it, and the decoder
-API, demo tools and workflow specs, on one NVIDIA GPU.
+API, demo tools and workflow specs, and the rest of the JAX package's
+public surface (the goal-gripper query, the attention variants, the
+profiler trace, the rotations), on one NVIDIA GPU.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It
 
@@ -207,7 +209,15 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    33 split + 132 tile launches per prediction, flash against eager
    attention (atol 5e-3) from one encoding and where the FPS picks of the
    two encodings agree;
-20. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}``
+20. runs the rest of the JAX package's public surface on the card (phase
+   ``api_surface``): the flagship's ``Encoder.encode_goal_gripper`` at
+   B = 1 and 8 (3 split launches per call, flash against eager within
+   5e-3, p50s), ``MultiheadAttention`` with each variant (slot competition,
+   gated memory with and without its mask, ``return_kv``) under the flash
+   impl with no launch and the CPU's result, a ``ProfilerTrace`` of one
+   flagship DDIM-10 prediction naming each kernel as often as its counter
+   (23 + 80), and the rotation conversions against the CPU;
+21. prints one JSON line of per-kernel numbers, then ``{"ok": true, ...}``
    as the last line.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -467,8 +477,9 @@ def check_kernels():
     # encoder gripper cross-attention (L=3 arm, 6 humanoid) over 2048
     # vertices, denoiser cross-attention (L=1 arm, 2 humanoid) with the
     # context mask, self-attention over 1 + 409 FPS tokens; the flagship's
-    # over its 4096 context tokens and 1 + 819 FPS tokens. D=9: the
-    # committed fixtures (E=72): 512 vertices, 128 FPS tokens.
+    # over its 4096 context tokens and 1 + 819 FPS tokens, and its goal-gripper
+    # query (L=1, no mask; phase api_surface). D=9: the committed fixtures
+    # (E=72): 512 vertices, 128 FPS tokens.
     flagship_self = 1 + CONTEXT["rgbd_and_mesh"] // FPS_FACTOR
     # The flagship's shapes at the train batch, which every eval batch runs.
     shapes = [
@@ -507,6 +518,7 @@ def check_kernels():
             ("flagship_encoder_cross", B, HEADS, 3, CONTEXT["rgbd_and_mesh"], 15, False),
             ("flagship_denoiser_cross", B, HEADS, 1, CONTEXT["rgbd_and_mesh"], 15, True),
             ("flagship_self", B, HEADS, flagship_self, flagship_self, 15, True),
+            ("flagship_goal_cross", B, HEADS, 1, CONTEXT["rgbd_and_mesh"], 15, False),
             ("encoder_cross", B, HEADS, 3, VERTICES, 15, False),
             ("encoder_cross_humanoid", B, HEADS, 6, VERTICES, 15, False),
             ("denoiser_cross", B, HEADS, 1, VERTICES, 15, True),
@@ -2290,6 +2302,219 @@ def run_serving():
           device_busy_ms=busy["device_busy_ms"], device_idle_share=busy["device_idle_share"],
           seconds=time.perf_counter() - t_phase)
     return counts
+
+
+GOAL_BATCHES = (1, 8)
+GOAL_REPS = 20  # host-clock calls per attention impl
+VARIANT_QUERIES = 1 + CONTEXT["rgbd_and_mesh"] // FPS_FACTOR  # the flagship's self-attention
+VARIANT_MEMORY = 256
+VARIANT_ATOL = 1e-4  # fp32 card vs CPU, softmax sums over 4096 keys in other orders
+ROTATIONS = 1024
+ROTATION_ATOL = 1e-4  # fp32 card vs CPU: sin / atan2 / acos ulps, steep near +-1
+EULER_CONVENTIONS = ("XYZ", "XZY", "YXZ", "YZX", "ZXY", "ZYX",
+                     "XYX", "XZX", "YXY", "YZY", "ZXZ", "ZYZ")
+
+
+def trace_kernel_counts(path):
+    """Launches of each flash kernel in a Chrome trace (its kernel events)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"flash_attention_split": sum("flash_split_kernel" in n for n in names),
+            "flash_attention_tile": sum("flash_tile_kernel" in n for n in names)}
+
+
+def run_api_surface():
+    """Phase ``api_surface``: the rest of the JAX package's public surface on
+    the card. ``Encoder.encode_goal_gripper`` of the flagship (E = 120, 8
+    heads, 4096 context tokens) at B = 1 and 8: 3 split launches per call
+    (L = 1, no mask), flash within TRAJ_ATOL of eager, p50 per impl;
+    ``MultiheadAttention`` with each variant (slot competition, gated memory
+    with and without its mask, ``return_kv``) under the flash impl on the
+    card against the same module on the CPU, with no launch; a
+    ``ProfilerTrace`` around one flagship DDIM-10 prediction, whose trace
+    must name both kernels as often as the counters (23 + 80); the rotation
+    conversions on the card against the CPU over every Euler convention.
+    Returns each kernel's launches."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from nvblox_mindmap_torch.geometry import rotations
+    from nvblox_mindmap_torch.models.converter import (
+        apply_inference_settings,
+        convert_diffusion_scheduler,
+        convert_to_flash_attention,
+    )
+    from nvblox_mindmap_torch.models.diffuser_actor import (
+        DiffuserActor,
+        prepare_inputs,
+        sample_trajectory,
+    )
+    from nvblox_mindmap_torch.models.layers import MultiheadAttention
+    from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
+    from nvblox_mindmap_torch.ops.positional import rotary_pe_3d
+    from nvblox_mindmap_torch.utils.timers import ProfilerTrace
+
+    t_phase = time.perf_counter()
+    launches = {}
+    torch.manual_seed(0)
+    model = DiffuserActor(model_config("rgbd_and_mesh"), device="cuda")
+    N = CONTEXT["rgbd_and_mesh"]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    lo, hi = torch.tensor(WORKSPACE, device="cuda")
+    goal_rows = []
+    for B in GOAL_BATCHES:
+        # The goal's pose (B, 8): xyz in the workspace (its code), the rest unread.
+        args = (torch.cat([lo + (hi - lo) * torch.rand(B, 3, device="cuda", generator=gen),
+                           torch.rand(B, 5, device="cuda", generator=gen)], dim=1),
+                torch.randn(B, N, EMBEDDING, device="cuda", generator=gen),
+                lo + (hi - lo) * torch.rand(B, N, 3, device="cuda", generator=gen))
+
+        def call(impl):
+            with torch.no_grad():
+                return model.encoder.encode_goal_gripper(*args, impl=impl)
+
+        eager = call("eager")
+        reset_flash_counts()
+        flash = call("flash")
+        torch.cuda.synchronize()
+        counts = flash_counts()
+        if counts != {"flash_attention_split": 3, "flash_attention_tile": 0}:
+            raise AssertionError(f"encode_goal_gripper B={B}: {counts} flash launches")
+        add_launches(launches, counts)
+        if (flash[0].shape != (B, 1, EMBEDDING) or flash[1].shape != (B, 1, EMBEDDING, 2)
+                or not bool(torch.isfinite(flash[0]).all())):
+            raise AssertionError(f"encode_goal_gripper B={B}: {tuple(flash[0].shape)}")
+        err = max((a - b).abs().max().item() for a, b in zip(flash, eager))
+        if not err <= TRAJ_ATOL:
+            raise AssertionError(f"encode_goal_gripper B={B}: flash vs eager {err}")
+        times = {"flash": [], "eager": []}
+        for i in range(GOAL_REPS):
+            for impl in (("flash", "eager") if i % 2 == 0 else ("eager", "flash")):
+                times[impl].append(host_ms(lambda: call(impl)))
+        p50, q1, q3 = quartiles(times["flash"])
+        p50_eager, q1_eager, q3_eager = quartiles(times["eager"])
+        goal_rows.append(dict(B=B, context_tokens=N, launches=counts,
+                              max_abs_err_vs_eager=err, p50_ms=p50, q1_ms=q1, q3_ms=q3,
+                              p50_ms_eager_attention=p50_eager, q1_ms_eager_attention=q1_eager,
+                              q3_ms_eager_attention=q3_eager))
+
+    # The attention variants under the flash impl: the eager path on the
+    # card, no kernel launch, the CPU's result.
+    cpu_gen = torch.Generator().manual_seed(12)
+    query = torch.randn(1, VARIANT_QUERIES, EMBEDDING, generator=cpu_gen)
+    context = torch.randn(1, N, EMBEDDING, generator=cpu_gen)
+    key_mask = torch.rand(1, N, generator=cpu_gen) < 0.1
+    codes = (rotary_pe_3d(torch.rand(1, VARIANT_QUERIES, 3, generator=cpu_gen), EMBEDDING),
+             rotary_pe_3d(torch.rand(1, N, 3, generator=cpu_gen), EMBEDDING))
+    memory = torch.randn(1, VARIANT_MEMORY, EMBEDDING, generator=cpu_gen)
+    mem_mask = (torch.rand(1, VARIANT_MEMORY, generator=cpu_gen) > 0.3).float()
+    variants = {
+        "slot_competition": (dict(slot_competition=True), {}),
+        "gate_memory": (dict(gate_attn=True), dict(k_mem=memory, v_mem=memory)),
+        "gate_memory_mem_mask": (dict(gate_attn=True),
+                                 dict(k_mem=memory, v_mem=memory, mem_mask=mem_mask)),
+        "return_kv": ({}, dict(return_kv=True)),
+    }
+    def on(device, tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.to(device)
+        if isinstance(tree, tuple):
+            return tuple(on(device, t) for t in tree)
+        if isinstance(tree, dict):
+            return {k: on(device, v) for k, v in tree.items()}
+        return tree
+
+    variant_rows = []
+    set_default_attention_impl("flash")
+    for name, (fields, call_args) in variants.items():
+        torch.manual_seed(13)
+        cpu_module = MultiheadAttention(EMBEDDING, HEADS, **fields)
+        card_module = copy.deepcopy(cpu_module).to("cuda")
+        args = (query, context, context)
+        kwargs = dict(rotary_codes=codes, key_padding_mask=key_mask, **call_args)
+        with torch.no_grad():
+            reset_flash_counts()
+            on_card = card_module(*on("cuda", args), **on("cuda", kwargs))
+            torch.cuda.synchronize()
+            counts = flash_counts()
+            on_cpu = cpu_module(*args, **kwargs)
+        if any(counts.values()):
+            raise AssertionError(f"MultiheadAttention {name}: {counts} flash launches")
+        err = max((a.cpu() - b).abs().max().item() for a, b in zip(on_card, on_cpu)
+                  if a is not None)
+        if not err <= VARIANT_ATOL:
+            raise AssertionError(f"MultiheadAttention {name}: card vs CPU {err}")
+        variant_rows.append(dict(variant=name, L=VARIANT_QUERIES, S=N, launches=counts,
+                                 outputs=len(on_card), card_vs_cpu_max_abs_err=err))
+    set_default_attention_impl("eager")
+
+    # One flagship DDIM-10 prediction inside a ProfilerTrace.
+    bounds = np.asarray(WORKSPACE, dtype=np.float32)
+    prepared = prepare_inputs(make_batch(1, "rgbd_and_mesh", seed=14), bounds,
+                              model.config, device="cuda")
+    sampler = convert_diffusion_scheduler(EVAL_STEPS)
+    init = torch.randn((1, 1, 1, 9), device="cuda", generator=gen)
+    apply_inference_settings(convert_to_flash_attention())
+
+    def predict():
+        return sample_trajectory(model, prepared, bounds, init_noise=init, **sampler)
+
+    predict()  # warm-up
+    trace_dir = tempfile.mkdtemp(prefix="mindmap_trace_")
+    try:
+        reset_flash_counts()
+        with ProfilerTrace(trace_dir) as trace:
+            traj = predict()[0]
+        counts = flash_counts()
+        in_trace = trace_kernel_counts(trace.path)
+        trace_mb = os.path.getsize(trace.path) / 1e6
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    set_default_attention_impl("eager")
+    expected = per_sample(EVAL_STEPS)
+    if counts != expected or in_trace != expected:
+        raise AssertionError(f"profiler trace: counters {counts}, trace {in_trace}, "
+                             f"expected {expected}")
+    if traj.shape != (1, 1, 1, 8) or not bool(torch.isfinite(traj).all()):
+        raise AssertionError(f"profiler trace: trajectory {tuple(traj.shape)}")
+    add_launches(launches, counts)
+    del model
+    torch.cuda.empty_cache()
+
+    # The rotation conversions on the card against the CPU.
+    quats = torch.randn(ROTATIONS, 4, generator=cpu_gen)
+    quats = quats / quats.norm(dim=-1, keepdim=True)
+    points = torch.randn(ROTATIONS, 3, generator=cpu_gen)
+    axis_angle = torch.randn(ROTATIONS, 3, generator=cpu_gen)
+    angles = (torch.rand(ROTATIONS, 3, generator=cpu_gen) * 2 - 1) * math.pi
+    matrices = rotations.quaternion_to_matrix(quats)
+    calls = {
+        "quaternion_apply": lambda d: rotations.quaternion_apply(quats.to(d), points.to(d)),
+        "axis_angle_to_quaternion": lambda d: rotations.axis_angle_to_quaternion(
+            axis_angle.to(d)),
+        "axis_angle_to_matrix": lambda d: rotations.axis_angle_to_matrix(axis_angle.to(d)),
+        "matrix_to_axis_angle": lambda d: rotations.matrix_to_axis_angle(matrices.to(d)),
+    }
+    for convention in EULER_CONVENTIONS:
+        calls[f"euler_angles_to_matrix_{convention}"] = (
+            lambda d, c=convention: rotations.euler_angles_to_matrix(angles.to(d), c))
+        calls[f"matrix_to_euler_angles_{convention}"] = (
+            lambda d, c=convention: rotations.matrix_to_euler_angles(matrices.to(d), c))
+    rotation_err = {name: (fn("cuda").cpu() - fn("cpu")).abs().max().item()
+                    for name, fn in calls.items()}
+    worst = max(rotation_err, key=rotation_err.get)
+    if not rotation_err[worst] <= ROTATION_ATOL:
+        raise AssertionError(f"rotations: {worst} card vs CPU {rotation_err[worst]}")
+    phase("api_surface", goal_gripper=goal_rows, attention_variants=variant_rows,
+          profiler_trace=dict(sampler=f"ddim{EVAL_STEPS}", launches=counts,
+                              trace_kernel_events=in_trace, trace_mb=trace_mb),
+          rotations=dict(samples=ROTATIONS, conventions=len(EULER_CONVENTIONS),
+                         max_abs_err=rotation_err[worst], worst=worst),
+          launches=launches, seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -4396,6 +4621,7 @@ def main() -> int:
         stop_ddp(ddp)
         shutil.rmtree(work, ignore_errors=True)
     add_launches(launches, run_serving())
+    add_launches(launches, run_api_surface())
     phase("path_shapes", shapes=[dict(zip(("B", "H", "L", "S", "D", "masked"), shape))
                                  for shape in check_path_shapes(checks)])
 
@@ -4455,6 +4681,10 @@ def main() -> int:
             "fixture_path_ms": checks[fixture_key]["kernel_ms"],
             "fixture_path_shape": fixture_shape,
         })
+    split_entry = next(e for e in entries if e["name"] == "flash_attention_split")
+    split_entry.update(goal_gripper_ms=checks[("flagship_goal_cross", 1)]["kernel_ms"],
+                       goal_gripper_shape="flagship encode_goal_gripper B=1 H=8 L=1 S=4096 "
+                                          "D=15 unmasked")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

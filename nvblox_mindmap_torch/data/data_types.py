@@ -30,3 +30,7 @@ def includes_mesh(data_type: DataType) -> bool:
 
 def includes_policy_states(data_type: DataType) -> bool:
     return True
+
+
+def includes_nvblox(data_type: DataType) -> bool:
+    return data_type in (DataType.MESH, DataType.RGBD_AND_MESH)

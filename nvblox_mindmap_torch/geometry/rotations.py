@@ -1,11 +1,11 @@
-"""Rotation conversions in torch: the subset the keypose path and the
-training metrics use.
+"""Rotation conversions in torch.
 
 Port of ``nvblox_mindmap_tpu/geometry/rotations.py`` with the same
 conventions: quaternions are real-part-first (wxyz); the 6D representation
 packs the first two *columns* of the rotation matrix; reconstruction from 6D
 is the cross-product Gram-Schmidt (x = norm(b1), z = norm(x cross b2),
-y = z cross x). All functions broadcast over leading dims.
+y = z cross x); Euler conventions are PyTorch3D's intrinsic letter strings
+("XYZ", "ZYZ", ...). All functions broadcast over leading dims.
 """
 from __future__ import annotations
 
@@ -141,3 +141,94 @@ def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
 def matrix_to_rotation_6d(matrix: torch.Tensor) -> torch.Tensor:
     """Rotation matrix to 6D: the first two columns, flattened column-major."""
     return matrix[..., :, :2].transpose(-1, -2).reshape(matrix.shape[:-2] + (6,))
+
+
+def quaternion_apply(q: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
+    """Rotate 3D points by quaternions (broadcasting)."""
+    if point.shape[-1] != 3:
+        raise ValueError(f"Points are not 3D: {tuple(point.shape)}")
+    pq = torch.cat([torch.zeros_like(point[..., :1]), point], dim=-1)
+    out = quaternion_raw_multiply(quaternion_raw_multiply(q, pq), quaternion_invert(q))
+    return out[..., 1:]
+
+
+def axis_angle_to_quaternion(axis_angle: torch.Tensor) -> torch.Tensor:
+    """wxyz quaternions of axis-angle vectors (..., 3); below an angle of
+    1e-6 the sin(a/2)/a ratio is its Taylor series."""
+    angles = torch.linalg.norm(axis_angle, dim=-1, keepdim=True)
+    half = angles * 0.5
+    small = torch.abs(angles) < 1e-6
+    safe_angles = torch.where(small, torch.ones_like(angles), angles)
+    ratio = torch.where(small, 0.5 - (angles * angles) / 48, torch.sin(half) / safe_angles)
+    return torch.cat([torch.cos(half), axis_angle * ratio], dim=-1)
+
+
+def axis_angle_to_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
+    return quaternion_to_matrix(axis_angle_to_quaternion(axis_angle))
+
+
+def matrix_to_axis_angle(matrix: torch.Tensor) -> torch.Tensor:
+    return quaternion_to_axis_angle(matrix_to_quaternion(matrix))
+
+
+def _axis_rotation(axis: str, angle: torch.Tensor) -> torch.Tensor:
+    cos, sin = torch.cos(angle), torch.sin(angle)
+    one, zero = torch.ones_like(angle), torch.zeros_like(angle)
+    if axis == "X":
+        flat = (one, zero, zero, zero, cos, -sin, zero, sin, cos)
+    elif axis == "Y":
+        flat = (cos, zero, sin, zero, one, zero, -sin, zero, cos)
+    elif axis == "Z":
+        flat = (cos, -sin, zero, sin, cos, zero, zero, zero, one)
+    else:
+        raise ValueError("axis must be X, Y or Z")
+    return torch.stack(flat, dim=-1).reshape(angle.shape + (3, 3))
+
+
+def _check_convention(convention: str) -> None:
+    if len(convention) != 3 or any(c not in "XYZ" for c in convention):
+        raise ValueError(f"Invalid convention {convention}")
+
+
+def euler_angles_to_matrix(euler_angles: torch.Tensor, convention: str) -> torch.Tensor:
+    """Euler angles (..., 3) to rotation matrices with an intrinsic convention
+    string like "XYZ" (PyTorch3D's: R = R0 @ R1 @ R2)."""
+    if euler_angles.shape[-1] != 3:
+        raise ValueError("euler_angles must have last dim 3")
+    _check_convention(convention)
+    mats = [_axis_rotation(axis, euler_angles[..., i]) for i, axis in enumerate(convention)]
+    return mats[0] @ mats[1] @ mats[2]
+
+
+def _angle_from_tan(axis: str, other_axis: str, data: torch.Tensor, horizontal: bool,
+                    tait_bryan: bool) -> torch.Tensor:
+    """The first or third Euler angle from a row (``horizontal``) or column
+    of the matrix, as PyTorch3D's helper of the same name."""
+    i1, i2 = {"X": (2, 1), "Y": (0, 2), "Z": (1, 0)}[axis]
+    if horizontal:
+        i2, i1 = i1, i2
+    even = (axis + other_axis) in ["XY", "YZ", "ZX"]
+    if horizontal == even:
+        return torch.atan2(data[..., i1], data[..., i2])
+    if tait_bryan:
+        return torch.atan2(-data[..., i2], data[..., i1])
+    return torch.atan2(data[..., i2], -data[..., i1])
+
+
+def matrix_to_euler_angles(matrix: torch.Tensor, convention: str) -> torch.Tensor:
+    """Inverse of ``euler_angles_to_matrix`` (the same convention letters)."""
+    _check_convention(convention)
+    i0 = "XYZ".index(convention[0])
+    i2 = "XYZ".index(convention[2])
+    tait_bryan = i0 != i2
+    if tait_bryan:
+        sign = -1.0 if i0 - i2 in [-1, 2] else 1.0
+        central = torch.asin(torch.clamp(matrix[..., i0, i2] * sign, -1, 1))
+    else:
+        central = torch.acos(torch.clamp(matrix[..., i0, i0], -1, 1))
+    o = (
+        _angle_from_tan(convention[0], convention[1], matrix[..., i2], False, tait_bryan),
+        central,
+        _angle_from_tan(convention[2], convention[1], matrix[..., i0, :], True, tait_bryan),
+    )
+    return torch.stack(o, dim=-1)

@@ -168,6 +168,7 @@ class DiffuserActor(nn.Module):
             predictor_dropout=cfg.predictor_dropout,
             use_instruction=cfg.use_instruction,
             lang_enhanced=cfg.lang_enhanced,
+            prediction_horizon=cfg.prediction_horizon,
         )
         init_as_flax_(self)
         self.to(device)

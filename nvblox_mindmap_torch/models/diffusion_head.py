@@ -13,7 +13,9 @@ The AdaLN signal is sinusoidal(timestep) MLP + flattened gripper-history
 embedding. Empty-context samples fall back to an all-active mask with zeroed
 features so softmax stays finite, branchless as in the JAX package.
 ``diffusion_dropout`` goes to the attention stacks, ``predictor_dropout`` to
-the MLPs' hidden layer, as in the flax module.
+the MLPs' hidden layer, as in the flax module. ``prediction_horizon`` is
+kept for the flax module's signature, which declares it and never reads it
+(the trajectory's length comes from its input).
 
 Language: with ``use_instruction`` the trajectory tokens first cross-attend
 to the instruction (``traj_lang_attention``, one layer, no feed-forward,
@@ -64,6 +66,7 @@ class DiffusionHead(nn.Module):
         predictor_dropout: float = 0.0,
         use_instruction: bool = False,
         lang_enhanced: bool = False,
+        prediction_horizon: int = 1,
     ):
         super().__init__()
         E = embedding_dim

@@ -10,6 +10,8 @@ Port of ``nvblox_mindmap_tpu/models/encoder.py``:
 - ``encode_gripper_history``: openness-conditioned queries (or one learnt
   query per slot, without ``encode_openness``) cross-attending (3 rotary
   layers) to the full context.
+- ``encode_goal_gripper``: the learnt goal query (``goal_gripper_embed``)
+  at the goal's position through the same layers; no keypose path calls it.
 - ``run_fps``: feature-space farthest point sampling with zeroed invalid
   tokens.
 - ``encode_instruction`` (``instruction_encoder``: (B, T, 512) CLIP text
@@ -191,6 +193,33 @@ class Encoder(nn.Module):
             queries, context_feats, query_pos=gripper_pos, value_pos=context_pos, impl=impl
         )
         return outputs[-1], gripper_pos, weights[-1]
+
+    def encode_goal_gripper(
+        self,
+        goal_gripper: torch.Tensor,
+        context_feats: torch.Tensor,
+        context: torch.Tensor,
+        impl: Optional[str] = None,
+    ):
+        """The goal-gripper query cross-attends to the context through the
+        gripper-history layers.
+
+        Args:
+            goal_gripper: (B, >=3) goal pose (its xyz gives the rotary code).
+            context_feats: (B, N, E); context: (B, N, 3).
+            impl: attention impl (None = the process-wide default).
+
+        Returns:
+            (feats (B, 1, E), pos code (B, 1, E, 2)).
+        """
+        B = goal_gripper.shape[0]
+        queries = self.goal_gripper_embed[None].expand(B, 1, self.embedding_dim)
+        goal_pos = self.relative_pe(goal_gripper[:, None, :3])
+        context_pos = self.relative_pe(context)
+        outputs, _ = self.gripper_context_head(
+            queries, context_feats, query_pos=goal_pos, value_pos=context_pos, impl=impl
+        )
+        return outputs[-1], goal_pos
 
     def encode_instruction(self, instruction: torch.Tensor):
         """(B, T, 512) CLIP text features -> (B, T, E) + a zero rotary code."""

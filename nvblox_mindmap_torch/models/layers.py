@@ -67,20 +67,33 @@ def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
 
 
 class MultiheadAttention(nn.Module):
-    """q/k/v/out projections around ``ops.attention.multi_head_attention``.
+    """q/k/v/out projections around ``ops.attention.multi_head_attention``,
+    with the JAX module's variants (part of its contract; the shipped
+    configs enable none of them):
 
-    The JAX module's slot-competition, memory-gating and ``return_kv``
-    variants are off in every shipped config and are not ported; the
-    functional op keeps them.
+    - ``slot_competition``: softmax over the queries, then renormalize over
+      the keys;
+    - ``gate_attn``: a per-head ``gate_attn`` parameter (flax's
+      ``normal(1.0)``) that mixes attention over the memory ``k_mem`` /
+      ``v_mem`` (weighted by ``mem_mask``) into the output;
+    - ``return_kv``: return ``(out_proj(out), q, k, v)`` with the post-rotary
+      per-head q, k, v.
+
+    A call with any variant takes the eager path, whatever the impl; only a
+    plain call reaches the flash kernel. ``dropout`` is kept for the JAX
+    module's signature, which declares it and never reads it.
     """
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 slot_competition: bool = False, gate_attn: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.slot_competition = slot_competition
         self.q_proj = nn.Linear(embed_dim, embed_dim)
         self.k_proj = nn.Linear(embed_dim, embed_dim)
         self.v_proj = nn.Linear(embed_dim, embed_dim)
         self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.gate_attn = nn.Parameter(torch.randn(num_heads)) if gate_attn else None
 
     def forward(
         self,
@@ -91,13 +104,18 @@ class MultiheadAttention(nn.Module):
         key_padding_mask: Optional[torch.Tensor] = None,
         need_weights: bool = True,
         impl: Optional[str] = None,
-    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        k_mem: Optional[torch.Tensor] = None,
+        v_mem: Optional[torch.Tensor] = None,
+        mem_mask: Optional[torch.Tensor] = None,
+        return_kv: bool = False,
+    ):
+        """``(out, weights or None)``, or ``(out, q, k, v)`` with ``return_kv``."""
         impl = get_default_attention_impl() if impl is None else impl
         # The flash kernel cannot materialize weights: drop them, as the JAX
         # module does under its flash default.
         if impl == "flash":
             need_weights = False
-        out, weights = multi_head_attention(
+        result = multi_head_attention(
             self.q_proj(query),
             self.k_proj(key),
             self.v_proj(value),
@@ -106,7 +124,17 @@ class MultiheadAttention(nn.Module):
             rotary_codes=rotary_codes,
             need_weights=need_weights,
             impl=impl,
+            slot_competition=self.slot_competition,
+            k_mem=k_mem,
+            v_mem=v_mem,
+            mem_mask=mem_mask,
+            gate_logits=self.gate_attn,
+            return_kv=return_kv,
         )
+        if return_kv:
+            out, qh, kh, vh = result
+            return self.out_proj(out), qh, kh, vh
+        out, weights = result
         return self.out_proj(out), weights
 
 

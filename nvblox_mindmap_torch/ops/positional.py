@@ -4,6 +4,8 @@ Port of ``nvblox_mindmap_tpu/ops/positional.py``:
 
 - ``sinusoidal_pos_emb``: transformer timestep embedding, exp-spaced
   frequencies, (sin || cos).
+- ``rotary_pe_1d``: the rotary code of scalar positions over the whole
+  feature dim F (F//2 frequencies, duplicated pairwise).
 - ``rotary_pe_3d``: XYZ rotary encoding. The feature dim F is split into
   three bands of F//3 (one per axis); each band holds F//6 frequencies
   duplicated pairwise (interleaved) so that ``embed_rotary`` rotates
@@ -33,6 +35,17 @@ def sinusoidal_pos_emb(x: torch.Tensor, dim: int) -> torch.Tensor:
 def _interleave_pairs(x: torch.Tensor) -> torch.Tensor:
     """(..., d) -> (..., 2d) duplicating each value pairwise: a,b -> a,a,b,b."""
     return torch.repeat_interleave(x, 2, dim=-1)
+
+
+def rotary_pe_1d(positions: torch.Tensor, feature_dim: int) -> torch.Tensor:
+    """1D rotary code: (..., N) positions -> (..., N, F, 2) (cos, sin)."""
+    div_term = torch.exp(
+        torch.arange(0, feature_dim, 2, dtype=torch.float32, device=positions.device)
+        * (-math.log(10000.0) / feature_dim)
+    )
+    args = positions[..., None].to(torch.float32) * div_term
+    return torch.stack([_interleave_pairs(torch.cos(args)),
+                        _interleave_pairs(torch.sin(args))], dim=-1)
 
 
 def rotary_pe_3d(xyz: torch.Tensor, feature_dim: int) -> torch.Tensor:

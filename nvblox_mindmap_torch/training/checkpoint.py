@@ -254,9 +254,14 @@ def _ext(code: int, data: bytes) -> Any:
     raise ValueError(f"msgpack: unknown ext type {code}")
 
 
+# flax.serialization.MAX_CHUNK_SIZE: flax writes larger arrays in chunks.
+MAX_CHUNK_SIZE = 2 ** 30
+
+
 def _unchunk(tree: Any) -> Any:
-    """flax writes arrays over 1 GiB as {"__msgpack_chunked_array__", "shape",
-    "chunks"} dicts (tuples as {"0": ..., "1": ...})."""
+    """flax writes arrays over ``MAX_CHUNK_SIZE`` bytes as
+    {"__msgpack_chunked_array__", "shape", "chunks"} dicts (tuples as
+    {"0": ..., "1": ...})."""
     if not isinstance(tree, dict):
         return tree
     if "__msgpack_chunked_array__" in tree:
@@ -312,15 +317,15 @@ def _encode(obj: Any, out: bytearray) -> None:
             _encode(item, out)
     elif isinstance(obj, dict):
         _header(out, len(obj), 0x80, 16, (None, 0xDE, 0xDF))
-        for key in sorted(obj):  # flax copies the tree with jax's sorted keys
+        # flax copies the tree with jax's sorted keys, then builds the
+        # chunked form of large arrays in its own order.
+        for key in obj if isinstance(obj, _InOrder) else sorted(obj):
             _encode(key, out)
             _encode(obj[key], out)
     elif isinstance(obj, (np.ndarray, np.generic)):
         array = np.asarray(obj)
         if array.dtype.hasobject or array.dtype.isalignedstruct:
             raise ValueError("object and structured dtypes are not serialized")
-        if array.nbytes > 2 ** 30:
-            raise NotImplementedError("arrays over 1 GiB (flax's chunked form) are not written")
         payload = bytearray()
         _encode((array.shape, array.dtype.name, array.tobytes("C")), payload)
         _encode_ext(out, _EXT_NDARRAY if isinstance(obj, np.ndarray) else _EXT_NPSCALAR,
@@ -351,10 +356,39 @@ def _encode_ext(out: bytearray, code: int, payload: bytes) -> None:
     out += payload
 
 
+class _InOrder(dict):
+    """A dict that ``_encode`` writes in insertion order."""
+
+
+def _chunk(array: np.ndarray) -> _InOrder:
+    """flax's chunked form of ``array``: its flat elements in runs of
+    ``MAX_CHUNK_SIZE`` bytes (tuples as {"0": ..., "1": ...})."""
+    def as_dict(items):
+        return _InOrder((str(i), item) for i, item in enumerate(items))
+
+    size = max(1, int(MAX_CHUNK_SIZE / array.dtype.itemsize))
+    flat = array.reshape(-1)
+    return _InOrder((("__msgpack_chunked_array__", True), ("shape", as_dict(array.shape)),
+                     ("chunks", as_dict(flat[i:i + size] for i in range(0, flat.size, size)))))
+
+
+def _chunk_leaves(tree: Any) -> Any:
+    """The arrays over ``MAX_CHUNK_SIZE`` bytes in their chunked form where
+    flax chunks them: the tree itself and the values of dicts (an array in
+    a list is written whole)."""
+    if isinstance(tree, np.ndarray):
+        return _chunk(tree) if tree.nbytes > MAX_CHUNK_SIZE else tree
+    if isinstance(tree, dict):
+        return {k: _chunk_leaves(v) if isinstance(v, (dict, np.ndarray)) else v
+                for k, v in tree.items()}
+    return tree
+
+
 def msgpack_serialize(tree: Any) -> bytes:
     """What ``flax.serialization.msgpack_serialize`` writes for ``tree``
     (nested dicts of numpy arrays and Python values; dict keys sorted, as
-    flax's copy of the tree sorts them)."""
+    flax's copy of the tree sorts them; arrays over ``MAX_CHUNK_SIZE``
+    bytes in flax's chunked form)."""
     out = bytearray()
-    _encode(tree, out)
+    _encode(_chunk_leaves(tree), out)
     return bytes(out)

@@ -15,6 +15,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from nvblox_mindmap_torch.utils.timers import get_mean_time
+
 logger = logging.getLogger("nvblox_mindmap_torch.metrics")
 
 
@@ -56,6 +58,11 @@ class MetricLogger:
         else:
             parts = ", ".join(f"{k}={v:.5f}" for k, v in flat.items())
             logger.info("step %d: %s", step, parts)
+
+    def log_timings(self, step: int, timer_names_to_log):
+        """Each named timer's mean (seconds) as ``timings/<name>``."""
+        self.log({f"timings/{name}": get_mean_time(name) for name in timer_names_to_log},
+                 step)
 
     def log_trajectory_figure(self, pred_pos, gt_pos, step: int, split: str = "val"
                               ) -> Optional[str]:

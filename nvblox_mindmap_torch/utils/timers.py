@@ -7,13 +7,16 @@ total, last and max and renders an aligned status report.
 Device work is asynchronous, so a host clock around it measures the time to
 enqueue it. Where the JAX package asks its callers to wait on their arrays,
 a ``Timer(name, synchronize=True)`` synchronizes the CUDA device when it
-starts and stops, so it measures the work done.
+starts and stops, so it measures the work done. ``ProfilerTrace`` records
+the device's own timeline.
 """
 from __future__ import annotations
 
 import collections
+import os
+import socket
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -79,6 +82,21 @@ class Timer:
         return False
 
 
+def get_last_time(name: str) -> float:
+    rec = _REGISTRY.get(name)
+    return rec.last if rec else 0.0
+
+
+def get_mean_time(name: str) -> float:
+    rec = _REGISTRY.get(name)
+    return rec.mean if rec else 0.0
+
+
+def get_total_time(name: str) -> float:
+    rec = _REGISTRY.get(name)
+    return rec.total if rec else 0.0
+
+
 def timer_names() -> List[str]:
     return sorted(_REGISTRY)
 
@@ -102,3 +120,45 @@ def timer_status_string() -> str:
             f"\t{rec.last:.4f}\t{rec.max:.4f}"
         )
     return "\n".join(lines)
+
+
+def print_timers():
+    print(timer_status_string())
+
+
+class ProfilerTrace:
+    """A ``torch.profiler`` trace of the work inside the context (the
+    counterpart of the JAX package's ``jax.profiler`` trace): host
+    activity, and the CUDA kernels too where a card is present. On exit it
+    writes a Chrome trace (JSON, viewable in Perfetto or chrome://tracing)
+    into ``log_dir`` and keeps its path in ``path``. Usage:
+
+        with ProfilerTrace("/tmp/trace") as trace:
+            train_step(...)
+        print(trace.path)
+    """
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self.path: Optional[str] = None
+        self._profiler = None
+
+    def __enter__(self) -> "ProfilerTrace":
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=activities)
+        self._profiler.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        self._profiler.__exit__(*exc)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.path = os.path.join(
+            self.log_dir, f"{socket.gethostname()}.{os.getpid()}.{time.time_ns()}.pt.trace.json")
+        self._profiler.export_chrome_trace(self.path)
+        return False

@@ -32,6 +32,12 @@
   episode through the bridge, the Isaac Lab adapter over a stand-in env,
   the humanoid hand, the decoder API, the new scripts and the workflow
   specs (the HDF5 tools raise naming h5py; the golden recipe exits 1).
+- An eighth, with ``jax``, the reference readers, ``matplotlib`` and
+  ``wandb`` blocked, runs the attention variants, the goal-gripper query,
+  the rotations and the package exports, the 1D rotary code, the timers,
+  ``ProfilerTrace``, flax's chunked msgpack form and the bench-table
+  renderer's ``--check``.
+- The simulator host's modules import with torch blocked.
 - A scan of the port's sources and ``chip_smoke.py`` for such imports.
 - Entry points called without a device on a machine without CUDA raise
   rather than fall back to the CPU (the packed loader and serving too,
@@ -672,6 +678,99 @@ def test_bridges_runtime_and_scripts_run_without_jax_and_optional_modules():
     assert "LOADED []" in proc.stdout, proc.stdout
 
 
+API_SURFACE = r"""
+import sys
+for name in {FORBIDDEN}:
+    sys.modules[name] = None  # any import of it now raises ImportError
+import json
+import tempfile
+import numpy as np
+import torch
+from nvblox_mindmap_torch.data.data_types import DataType, includes_nvblox
+from nvblox_mindmap_torch.embodiments import ArmEmbodiment, EmbodimentType
+from nvblox_mindmap_torch.geometry import (
+    axis_angle_to_matrix, axis_angle_to_quaternion, euler_angles_to_matrix,
+    matrix_to_euler_angles, quaternion_apply)
+from nvblox_mindmap_torch.geometry.rotations import matrix_to_axis_angle
+from nvblox_mindmap_torch.models.diffuser_actor import DiffuserActor, DiffuserActorConfig
+from nvblox_mindmap_torch.models.layers import MultiheadAttention
+from nvblox_mindmap_torch.ops.positional import rotary_pe_1d
+from nvblox_mindmap_torch.scripts import render_bench_table
+from nvblox_mindmap_torch.training import checkpoint
+from nvblox_mindmap_torch.utils.logging_utils import MetricLogger
+from nvblox_mindmap_torch.utils.timers import ProfilerTrace, Timer, get_mean_time, print_timers
+
+torch.manual_seed(0)
+x = torch.randn(2, 5, 24)
+mha = MultiheadAttention(24, 4, slot_competition=True, gate_attn=True)
+out, q, k, v = mha(x, x, x, k_mem=x, v_mem=x, mem_mask=torch.ones(2, 5), return_kv=True)
+assert out.shape == (2, 5, 24) and q.shape == (2, 5, 4, 6)
+model = DiffuserActor(DiffuserActorConfig(embedding_dim=24, num_attn_heads=4,
+                                          vertex_feature_dim=8), device="cpu")
+with torch.no_grad():
+    feats, pos = model.encoder.encode_goal_gripper(
+        torch.rand(2, 8), torch.randn(2, 16, 24), torch.rand(2, 16, 3), impl="flash")
+assert feats.shape == (2, 1, 24) and pos.shape == (2, 1, 24, 2)
+R = euler_angles_to_matrix(torch.rand(4, 3), "ZYX")
+assert torch.allclose(euler_angles_to_matrix(matrix_to_euler_angles(R, "ZYX"), "ZYX"), R,
+                      atol=1e-5)
+aa = torch.rand(4, 3)
+assert torch.allclose(matrix_to_axis_angle(axis_angle_to_matrix(aa)), aa, atol=1e-4)
+assert quaternion_apply(axis_angle_to_quaternion(aa), torch.rand(4, 3)).shape == (4, 3)
+assert rotary_pe_1d(torch.arange(5.0), 24).shape == (5, 24, 2)
+assert includes_nvblox(DataType.MESH) and not includes_nvblox(DataType.RGBD)
+assert ArmEmbodiment().embodiment_type == EmbodimentType.ARM
+checkpoint.MAX_CHUNK_SIZE = 16
+data = checkpoint.msgpack_serialize({"w": np.arange(20, dtype=np.float32)})
+assert b"__msgpack_chunked_array__" in data
+assert np.array_equal(checkpoint.msgpack_restore(data)["w"], np.arange(20, dtype=np.float32))
+with Timer("t"):
+    pass
+assert get_mean_time("t") > 0
+MetricLogger().log_timings(0, ["t"])
+print_timers()
+with ProfilerTrace(tempfile.mkdtemp()) as trace:
+    torch.ones(3) + 1
+with open(trace.path) as f:
+    assert json.load(f)["traceEvents"]
+assert render_bench_table.main(["--check"]) == 0
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in {FORBIDDEN})
+print("LOADED", loaded)
+"""
+
+
+def test_api_surface_runs_without_jax():
+    """The attention variants, the goal-gripper query, the rotations and the
+    package exports, the 1D rotary code, the timers and the profiler trace,
+    flax's chunked msgpack form and the bench-table renderer with jax, the
+    reference readers, matplotlib and wandb blocked."""
+    blocked = FORBIDDEN + ("zstandard", "imageio", "PIL", "matplotlib", "wandb")
+    code = API_SURFACE.replace("{FORBIDDEN}", repr(set(blocked)))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+def test_sim_host_modules_import_without_torch():
+    """The simulator host of the bridge serves a scene world without torch:
+    its modules, and the packages they sit in, import with torch blocked."""
+    code = ("import sys\n"
+            "sys.modules['torch'] = None\n"
+            "import nvblox_mindmap_torch.closed_loop.remote_env\n"
+            "import nvblox_mindmap_torch.closed_loop.scripted\n"
+            "import nvblox_mindmap_torch.geometry.np_rotations\n"
+            "import nvblox_mindmap_torch.embodiments\n"
+            "import nvblox_mindmap_torch.geometry as g\n"
+            "assert 'quaternion_apply' in g.__all__\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
 def _port_sources():
     paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "compare_flash_kernels.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "nvblox_mindmap_torch")):
@@ -715,7 +814,10 @@ def test_sources_import_nothing_of_jax():
                    "scripts/benchmark_decompression.py", "scripts/tar_demos.py",
                    "scripts/publish_closed_loop_eval.py", "scripts/hdf5_tools.py",
                    "scripts/plot_humanoid_keyposes.py", "scripts/convert_backbone_weights.py",
-                   "scripts/make_backbone_golden.py"):
+                   "scripts/make_backbone_golden.py", "scripts/render_bench_table.py",
+                   "geometry/__init__.py", "geometry/rotations.py",
+                   "embodiments/__init__.py", "ops/positional.py", "models/layers.py",
+                   "models/encoder.py"):
         assert os.path.join(ROOT, "nvblox_mindmap_torch", module) in sources, module
     for path in sources:
         with open(path) as f:
