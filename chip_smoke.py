@@ -342,6 +342,20 @@ def quartiles(times):
 BACKBONE_RANGE = "feature_extractor_forward"
 
 
+def device_events(prof):
+    """The device's own work in a profile's ``key_averages()``: kernels,
+    copies and memsets. A ``record_function`` range (``BACKBONE_RANGE``,
+    the program's ``mindmap/`` spans) shows there too, as a device-side
+    annotation whose time is the whole range's: those are left out."""
+    from torch.autograd import DeviceType
+
+    from nvblox_mindmap_torch.utils.timers import SPAN_PREFIX
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+            and e.key != BACKBONE_RANGE and not e.key.startswith(SPAN_PREFIX)]
+
+
 def profile(fn, wall_ms, backbone=None):
     """Kernel time of one ``fn()`` call from torch.profiler (device events
     only), its share of ``wall_ms`` (the unprofiled p50), and the top kernels.
@@ -369,8 +383,7 @@ def profile(fn, wall_ms, backbone=None):
         for hook in hooks:
             hook.remove()
     events = prof.key_averages()
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
-               if e.device_type == DeviceType.CUDA and e.key != BACKBONE_RANGE]
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in device_events(prof)]
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
     flash = [k for k in kernels if "flash_split_kernel" in k[0] or "flash_tile_kernel" in k[0]]
@@ -1706,7 +1719,6 @@ def run_train_app(resident_step_ms, keep_dir):
 
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from nvblox_mindmap_torch.apps import run_training as app
@@ -1808,8 +1820,7 @@ def run_train_app(resident_step_ms, keep_dir):
         trainer.run_training(train_loader, val_loader, start_iter=APP_TRAIN_ITERS)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
+    busy_ms = sum(e.self_device_time_total / 1e3 for e in device_events(prof))
     del trainer, result
 
     # A fresh process's path: the frozen args rebuild the model from
@@ -1956,7 +1967,6 @@ def run_packed_train(root, flags):
 
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from nvblox_mindmap_torch.apps import run_training as app
@@ -2055,8 +2065,7 @@ def run_packed_train(root, flags):
         trainer.run_training(staged_loader, None, start_iter=PACKED_STEPS)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
+    busy_ms = sum(e.self_device_time_total / 1e3 for e in device_events(prof))
     del staged_loader
 
     # The asynchronous backend at the flagship's size: save, wait, restore.
@@ -2567,7 +2576,6 @@ def run_datagen_app(root, npz):
 
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from nvblox_mindmap_torch.apps import run_datagen as app
@@ -2646,8 +2654,7 @@ def run_datagen_app(root, npz):
     with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall_ms = host_ms(lambda: real(demo, embodiment, mapping, feature_fn,
                                        max_num_steps=IDLE_FRAMES, device="cuda"))
-    busy_ms = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
+    busy_ms = sum(e.self_device_time_total / 1e3 for e in device_events(prof))
     del feature_fn
     torch.cuda.empty_cache()
     phase("datagen_app", task=LOOP_TASK, image=IMAGE, recorded_frames=frames,
@@ -2937,7 +2944,6 @@ def run_closed_loop_app(root, checkpoint, npz):
 
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from nvblox_mindmap_torch.apps import run_closed_loop_policy as app
@@ -2979,8 +2985,7 @@ def run_closed_loop_app(root, checkpoint, npz):
                 out = fn(*args, **kwargs)
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
-            busy = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA)
+            busy = sum(e.self_device_time_total / 1e3 for e in device_events(prof))
             idle.update(wall_ms=wall, device_busy_ms=busy, device_idle_share=1 - busy / wall)
             return out
         return wrapper
@@ -3233,7 +3238,6 @@ def run_remote_loop(root, checkpoint, npz, in_process):
 
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from nvblox_mindmap_torch.apps import run_closed_loop_policy as app
@@ -3288,8 +3292,7 @@ def run_remote_loop(root, checkpoint, npz, in_process):
                     out = fn(*args, **kwargs)
                     torch.cuda.synchronize()
                     wall = (time.perf_counter() - t0) * 1e3
-                busy = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
-                           if e.device_type == DeviceType.CUDA)
+                busy = sum(e.self_device_time_total / 1e3 for e in device_events(prof))
                 idle.update(wall_ms=wall, device_busy_ms=busy, device_idle_share=1 - busy / wall)
                 return out
             return wrapper
@@ -3725,7 +3728,6 @@ class step_profile:
         from unittest import mock
 
         import torch
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile as torch_profile
 
         from nvblox_mindmap_torch.training.trainer import Trainer
@@ -3743,8 +3745,7 @@ class step_profile:
                 out = real(trainer, *args, **kwargs)
                 torch.cuda.synchronize()
                 self.wall_ms += (time.perf_counter() - t0) * 1e3
-            self.busy_ms += sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
-                                if e.device_type == DeviceType.CUDA)
+            self.busy_ms += sum(e.self_device_time_total / 1e3 for e in device_events(prof))
             return out
 
         self.patch = mock.patch.object(Trainer, "train_one_step", wrapper)

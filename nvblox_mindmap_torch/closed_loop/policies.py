@@ -51,6 +51,7 @@ from nvblox_mindmap_torch.models.diffuser_actor import (
 )
 from nvblox_mindmap_torch.models.pretrained import make_feature_fn
 from nvblox_mindmap_torch.ops.backprojection import get_camera_pointcloud
+from nvblox_mindmap_torch.utils.timers import span
 
 # Surface-extraction budget cap: the datagen extraction default, so live
 # meshes never hold more of the scene than the training meshes did.
@@ -252,16 +253,19 @@ class NvbloxDiffuserActorPolicy(PolicyBase):
         # the cameras at inference time.
         if self.config.data_type not in ("mesh", "rgbd_and_mesh"):
             return
-        self.mapper.decay()
-        for frame in env.get_cameras().values():
-            features = self.feature_fn(frame.rgb)
-            dynamic_mask = dynamic_mask_from_segmentation(
-                frame.segmentation, env.semantic_id_to_class,
-                self.mapping_config.dynamic_class_labels)
-            nvblox_integrate(
-                self.mapper, self.mapping_config, frame.depth, features, frame.intrinsics,
-                pose7_to_matrix(frame.pose7), frame.rgb, dynamic_mask=dynamic_mask,
-                include_dynamic=self.include_dynamic)
+        with span("policy/step"):
+            self.mapper.decay()
+            for frame in env.get_cameras().values():
+                with span("policy/step/features"):
+                    features = self.feature_fn(frame.rgb)
+                dynamic_mask = dynamic_mask_from_segmentation(
+                    frame.segmentation, env.semantic_id_to_class,
+                    self.mapping_config.dynamic_class_labels)
+                with span("policy/step/integrate"):
+                    nvblox_integrate(
+                        self.mapper, self.mapping_config, frame.depth, features,
+                        frame.intrinsics, pose7_to_matrix(frame.pose7), frame.rgb,
+                        dynamic_mask=dynamic_mask, include_dynamic=self.include_dynamic)
 
     def _update_history(self, env: EnvironmentBase) -> None:
         """Record the policy state once per inference, not per sim step; the
@@ -286,23 +290,25 @@ class NvbloxDiffuserActorPolicy(PolicyBase):
     def mesh_vertices(self) -> Tuple[np.ndarray, np.ndarray]:
         """The live map's surface vertices and features (host arrays), the
         DYNAMIC map's after the STATIC one's with ``include_dynamic``."""
-        self._extract_mesh_growing(MapperId.STATIC)
-        vertices, features = get_vertices_and_features(
-            self.mapper, MapperId.STATIC, remove_zero_features=True)
-        if self.include_dynamic:
-            # Training meshes hold static + dynamic combined; the manipulated
-            # object lives in the DYNAMIC map.
-            self._extract_mesh_growing(MapperId.DYNAMIC)
-            dyn_v, dyn_f = get_vertices_and_features(
-                self.mapper, MapperId.DYNAMIC, remove_zero_features=True)
-            vertices = np.concatenate([vertices, dyn_v], axis=0)
-            features = np.concatenate([features, dyn_f], axis=0)
-        return vertices, features
+        with span("policy/goal/mesh"):
+            self._extract_mesh_growing(MapperId.STATIC)
+            vertices, features = get_vertices_and_features(
+                self.mapper, MapperId.STATIC, remove_zero_features=True)
+            if self.include_dynamic:
+                # Training meshes hold static + dynamic combined; the manipulated
+                # object lives in the DYNAMIC map.
+                self._extract_mesh_growing(MapperId.DYNAMIC)
+                dyn_v, dyn_f = get_vertices_and_features(
+                    self.mapper, MapperId.DYNAMIC, remove_zero_features=True)
+                vertices = np.concatenate([vertices, dyn_v], axis=0)
+                features = np.concatenate([features, dyn_f], axis=0)
+            return vertices, features
 
     def sample_vertices(self, vertices: np.ndarray, features: np.ndarray):
         """(vertices, features, valid) at exactly the vertex budget."""
-        return sample_to_n_vertices(vertices, features, self.num_vertices_to_sample,
-                                    self.vertex_sampling_method, self._rng)
+        with span("policy/goal/sample_vertices"):
+            return sample_to_n_vertices(vertices, features, self.num_vertices_to_sample,
+                                        self.vertex_sampling_method, self._rng)
 
     def camera_inputs(self, env: EnvironmentBase) -> Dict[str, Any]:
         """RGB (host), world point clouds (on the device) and depth-valid
@@ -310,19 +316,20 @@ class NvbloxDiffuserActorPolicy(PolicyBase):
         def on_device(x):
             return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=self.device)
 
-        rgbs, pcds, valids = [], [], []
-        for frame in env.get_cameras().values():
-            rgbs.append(frame.rgb)
-            pose7 = np.asarray(frame.pose7)
-            pcds.append(get_camera_pointcloud(on_device(frame.intrinsics),
-                                              on_device(frame.depth),
-                                              on_device(pose7[:3]), on_device(pose7[3:])))
-            valids.append(np.asarray(frame.depth) > 0)
-        rgbs = np.stack(rgbs)[None]
-        if rgbs.dtype == np.float64:
-            rgbs = rgbs.astype(np.float32)
-        return {"rgbs": rgbs, "pcds": torch.stack(pcds)[None],
-                "pcd_valid_mask": np.stack(valids)[None]}
+        with span("policy/goal/camera_inputs"):
+            rgbs, pcds, valids = [], [], []
+            for frame in env.get_cameras().values():
+                rgbs.append(frame.rgb)
+                pose7 = np.asarray(frame.pose7)
+                pcds.append(get_camera_pointcloud(on_device(frame.intrinsics),
+                                                  on_device(frame.depth),
+                                                  on_device(pose7[:3]), on_device(pose7[3:])))
+                valids.append(np.asarray(frame.depth) > 0)
+            rgbs = np.stack(rgbs)[None]
+            if rgbs.dtype == np.float64:
+                rgbs = rgbs.astype(np.float32)
+            return {"rgbs": rgbs, "pcds": torch.stack(pcds)[None],
+                    "pcd_valid_mask": np.stack(valids)[None]}
 
     def _model_inputs(self, env: EnvironmentBase) -> Dict[str, Any]:
         batch: Dict[str, Any] = dict.fromkeys((
@@ -358,21 +365,24 @@ class NvbloxDiffuserActorPolicy(PolicyBase):
             x = np.asarray(x)
             return np.array(np.broadcast_to(x, (K,) + x.shape[1:]))
 
-        prepared = prepare_inputs({k: tiled(v) for k, v in batch.items()}, self.bounds,
-                                  self.config, device=self.device)
-        traj, head_yaw, _ = sample_trajectory(
-            self.model, prepared, self.bounds, init_noise=init_noise, step_noise=step_noise,
-            generator=self._generator if init_noise is None else None, **self.sampler)
-        return traj.cpu().numpy(), None if head_yaw is None else head_yaw.cpu().numpy()
+        with span("policy/goal/predict"):
+            prepared = prepare_inputs({k: tiled(v) for k, v in batch.items()}, self.bounds,
+                                      self.config, device=self.device)
+            traj, head_yaw, _ = sample_trajectory(
+                self.model, prepared, self.bounds, init_noise=init_noise,
+                step_noise=step_noise,
+                generator=self._generator if init_noise is None else None, **self.sampler)
+            return traj.cpu().numpy(), None if head_yaw is None else head_yaw.cpu().numpy()
 
     def get_new_goal(self, env: EnvironmentBase, init_noise: Optional[torch.Tensor] = None,
                      step_noise: Optional[torch.Tensor] = None) -> List[np.ndarray]:
         """The next goal(s); ``init_noise`` / ``step_noise`` as in ``predict``."""
-        self._update_history(env)
-        traj, head_yaw = self.predict(self._model_inputs(env), init_noise, step_noise)
-        if self.num_prediction_samples > 1:
-            traj, head_yaw = aggregate_trajectory_samples(traj, head_yaw)
-        return trajectory_to_policy_states(traj, head_yaw, self.embodiment)
+        with span("policy/goal"):
+            self._update_history(env)
+            traj, head_yaw = self.predict(self._model_inputs(env), init_noise, step_noise)
+            if self.num_prediction_samples > 1:
+                traj, head_yaw = aggregate_trajectory_samples(traj, head_yaw)
+            return trajectory_to_policy_states(traj, head_yaw, self.embodiment)
 
 
 def aggregate_trajectory_samples(

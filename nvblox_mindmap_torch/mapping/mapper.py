@@ -44,6 +44,7 @@ from nvblox_mindmap_torch.device import DeviceLike, resolve_device
 from nvblox_mindmap_torch.mapping import voxel_grid as vg
 from nvblox_mindmap_torch.mapping.constants import MapperId, MappingConfig
 from nvblox_mindmap_torch.ops.masks import downscale_mask, erode_mask, get_border_mask
+from nvblox_mindmap_torch.utils.timers import span
 
 logger = logging.getLogger("nvblox_mindmap_torch.mapping")
 
@@ -114,39 +115,43 @@ class Mapper:
     def add_depth_frame(self, depth, camera_pose, intrinsics, mask=None,
                         mapper_id: int = MapperId.STATIC):
         d = self.device
-        self.states[mapper_id] = vg.integrate_depth(
-            self.states[mapper_id], self.configs[mapper_id],
-            _tensor(depth, d, torch.float32), _tensor(camera_pose, d, torch.float32),
-            _tensor(intrinsics, d, torch.float32),
-            None if mask is None else _tensor(mask, d, torch.bool),
-        )
+        with span("mapper/depth"):
+            self.states[mapper_id] = vg.integrate_depth(
+                self.states[mapper_id], self.configs[mapper_id],
+                _tensor(depth, d, torch.float32), _tensor(camera_pose, d, torch.float32),
+                _tensor(intrinsics, d, torch.float32),
+                None if mask is None else _tensor(mask, d, torch.bool),
+            )
 
     def add_color_frame(self, rgb, camera_pose, intrinsics, mask_frame=None,
                         mapper_id: int = MapperId.STATIC):
         d = self.device
-        rgb = _tensor(rgb, d)
-        if rgb.dtype == torch.uint8:
-            rgb = rgb.to(torch.float32) / 255.0
-        self.states[mapper_id] = vg.integrate_color(
-            self.states[mapper_id], self.configs[mapper_id], rgb,
-            _tensor(camera_pose, d, torch.float32), _tensor(intrinsics, d, torch.float32),
-            None if mask_frame is None else _tensor(mask_frame, d, torch.bool),
-        )
+        with span("mapper/color"):
+            rgb = _tensor(rgb, d)
+            if rgb.dtype == torch.uint8:
+                rgb = rgb.to(torch.float32) / 255.0
+            self.states[mapper_id] = vg.integrate_color(
+                self.states[mapper_id], self.configs[mapper_id], rgb,
+                _tensor(camera_pose, d, torch.float32), _tensor(intrinsics, d, torch.float32),
+                None if mask_frame is None else _tensor(mask_frame, d, torch.bool),
+            )
 
     def add_feature_frame(self, features, camera_pose, feature_intrinsics,
                           feature_mask=None, mapper_id: int = MapperId.STATIC):
         d = self.device
-        self.states[mapper_id] = vg.integrate_features(
-            self.states[mapper_id], self.configs[mapper_id], _tensor(features, d),
-            _tensor(camera_pose, d, torch.float32),
-            _tensor(feature_intrinsics, d, torch.float32),
-            None if feature_mask is None else _tensor(feature_mask, d, torch.bool),
-        )
+        with span("mapper/features"):
+            self.states[mapper_id] = vg.integrate_features(
+                self.states[mapper_id], self.configs[mapper_id], _tensor(features, d),
+                _tensor(camera_pose, d, torch.float32),
+                _tensor(feature_intrinsics, d, torch.float32),
+                None if feature_mask is None else _tensor(feature_mask, d, torch.bool),
+            )
 
     def decay(self, mapper_id: Optional[int] = None):
         ids = list(self.states) if mapper_id is None else [mapper_id]
-        for mid in ids:
-            self.states[mid] = vg.decay(self.states[mid], self.configs[mid])
+        with span("mapper/decay"):
+            for mid in ids:
+                self.states[mid] = vg.decay(self.states[mid], self.configs[mid])
 
     def clear(self, mapper_id: Optional[int] = None):
         ids = list(self.states) if mapper_id is None else [mapper_id]
@@ -160,10 +165,11 @@ class Mapper:
         """Extract up to ``max_vertices`` surface vertices; the total crossing
         count lands in ``last_crossing_count`` (a warning when it overflows
         the budget)."""
-        vertices, features, valid, count = vg.extract_surface_vertices(
-            self.states[mapper_id], self.configs[mapper_id], max_vertices, return_count=True)
-        self._mesh_cache[mapper_id] = (vertices, features, valid)
-        self.last_crossing_count = int(count)
+        with span("mapper/mesh"):
+            vertices, features, valid, count = vg.extract_surface_vertices(
+                self.states[mapper_id], self.configs[mapper_id], max_vertices, return_count=True)
+            self._mesh_cache[mapper_id] = (vertices, features, valid)
+            self.last_crossing_count = int(count)
         if self.last_crossing_count > max_vertices:
             logger.warning(
                 "surface extraction overflow: %d zero-crossings > max_vertices=%d; the "
@@ -396,14 +402,15 @@ def get_vertices_and_features(
     so featureless points never reach the vertex sample budget. The
     filtering runs on the device; only the kept rows cross to the host.
     """
-    vertices, features, valid = mapper.get_feature_mesh(mapper_id)
-    vertices, features = vertices[valid], features[valid]
-    if num_excess_features > 0:
-        features = features[..., :-num_excess_features]
-    if remove_zero_features:
-        nonzero = ~(features == 0).all(dim=1)
-        vertices, features = vertices[nonzero], features[nonzero]
-    return vertices.cpu().numpy(), features.cpu().numpy()
+    with span("mapper/mesh_to_host"):
+        vertices, features, valid = mapper.get_feature_mesh(mapper_id)
+        vertices, features = vertices[valid], features[valid]
+        if num_excess_features > 0:
+            features = features[..., :-num_excess_features]
+        if remove_zero_features:
+            nonzero = ~(features == 0).all(dim=1)
+            vertices, features = vertices[nonzero], features[nonzero]
+        return vertices.cpu().numpy(), features.cpu().numpy()
 
 
 def save_feature_mesh_to_disk(

@@ -52,6 +52,7 @@ from nvblox_mindmap_torch.models.normalization import (
     unnormalize_trajectory,
 )
 from nvblox_mindmap_torch.ops.schedulers import DiffusionSchedule, make_schedule
+from nvblox_mindmap_torch.utils.timers import span
 
 DATA_TYPES = ("rgbd", "mesh", "rgbd_and_mesh")
 
@@ -200,56 +201,57 @@ class DiffuserActor(nn.Module):
         gripper_history (B, nhist, G, 9); curr_closedness (B, nhist, G, 1).
         The context is the image tokens, then the mesh's.
         """
-        cfg = self.config
-        parts_feats, parts_pos, parts_mask = [], [], []
+        with span("model/encode"):
+            cfg = self.config
+            parts_feats, parts_pos, parts_mask = [], [], []
 
-        def add(feats, pos, mask):
-            parts_feats.append(feats)
-            parts_pos.append(pos)
-            parts_mask.append(mask if mask is not None else torch.ones(
-                feats.shape[:2], dtype=torch.bool, device=feats.device))
+            def add(feats, pos, mask):
+                parts_feats.append(feats)
+                parts_pos.append(pos)
+                parts_mask.append(mask if mask is not None else torch.ones(
+                    feats.shape[:2], dtype=torch.bool, device=feats.device))
 
-        if cfg.data_type in ("rgbd", "rgbd_and_mesh"):
-            add(*self.encoder.encode_images(rgb_obs, pcd_obs, valid_mask=pcd_valid_mask))
-        if cfg.data_type in ("mesh", "rgbd_and_mesh"):
-            add(*self.encoder.encode_feature_pointcloud(vertex_features, vertices),
-                vertices_valid_mask)
-        context_feats = torch.cat(parts_feats, dim=1)
-        context = torch.cat(parts_pos, dim=1)
-        context_mask = torch.cat(parts_mask, dim=1)
+            if cfg.data_type in ("rgbd", "rgbd_and_mesh"):
+                add(*self.encoder.encode_images(rgb_obs, pcd_obs, valid_mask=pcd_valid_mask))
+            if cfg.data_type in ("mesh", "rgbd_and_mesh"):
+                add(*self.encoder.encode_feature_pointcloud(vertex_features, vertices),
+                    vertices_valid_mask)
+            context_feats = torch.cat(parts_feats, dim=1)
+            context = torch.cat(parts_pos, dim=1)
+            context_mask = torch.cat(parts_mask, dim=1)
 
-        instr_feats = None
-        if cfg.use_instruction:
-            if instruction is None:
-                raise ValueError("use_instruction needs an instruction (B, T, 512)")
-            instr_feats, _ = self.encoder.encode_instruction(instruction)
-            context_feats = self.encoder.vision_language_attention(context_feats, instr_feats,
-                                                                   impl=impl)
+            instr_feats = None
+            if cfg.use_instruction:
+                if instruction is None:
+                    raise ValueError("use_instruction needs an instruction (B, T, 512)")
+                instr_feats, _ = self.encoder.encode_instruction(instruction)
+                context_feats = self.encoder.vision_language_attention(context_feats, instr_feats,
+                                                                       impl=impl)
 
-        adaln_gripper_feats, _, gripper_attn_weights = (
-            self.encoder.encode_gripper_history(
-                gripper_history, context_feats, context, curr_closedness, impl=impl
+            adaln_gripper_feats, _, gripper_attn_weights = (
+                self.encoder.encode_gripper_history(
+                    gripper_history, context_feats, context, curr_closedness, impl=impl
+                )
             )
-        )
-        if cfg.use_fps:
-            fps_feats, fps_pos, fps_mask = self.encoder.run_fps(
-                context_feats, self.encoder.relative_pe(context), context_mask
-            )
-        else:
-            fps_feats = context_feats
-            fps_pos = self.encoder.relative_pe(context)
-            fps_mask = context_mask
-        return {
-            "context_feats": context_feats,
-            "context": context,
-            "context_mask": context_mask,
-            "instr_feats": instr_feats,
-            "adaln_gripper_feats": adaln_gripper_feats,
-            "fps_feats": fps_feats,
-            "fps_pos": fps_pos,
-            "fps_mask": fps_mask,
-            "gripper_attn_weights": gripper_attn_weights,
-        }
+            if cfg.use_fps:
+                fps_feats, fps_pos, fps_mask = self.encoder.run_fps(
+                    context_feats, self.encoder.relative_pe(context), context_mask
+                )
+            else:
+                fps_feats = context_feats
+                fps_pos = self.encoder.relative_pe(context)
+                fps_mask = context_mask
+            return {
+                "context_feats": context_feats,
+                "context": context,
+                "context_mask": context_mask,
+                "instr_feats": instr_feats,
+                "adaln_gripper_feats": adaln_gripper_feats,
+                "fps_feats": fps_feats,
+                "fps_pos": fps_pos,
+                "fps_mask": fps_mask,
+                "gripper_attn_weights": gripper_attn_weights,
+            }
 
     def encode_prepared(self, prepared: Dict[str, Any],
                         impl: Optional[str] = None) -> Dict[str, Any]:
@@ -311,66 +313,67 @@ def prepare_inputs(
     package and upstream, and the shifted clouds are still bounds-checked
     against the absolute workspace.
     """
-    device = resolve_device(device)
+    with span("model/prepare_inputs"):
+        device = resolve_device(device)
 
-    def on_device(x):
-        return None if x is None else torch.as_tensor(x, device=device)
+        def on_device(x):
+            return None if x is None else torch.as_tensor(x, device=device)
 
-    bounds = on_device(workspace_bounds).to(torch.float32)
-    out: Dict[str, Any] = {}
-    gripper_history = on_device(batch["gripper_history"])
-    out["curr_closedness"] = gripper_history[..., 7:8]
-    gripper_history = gripper_history[..., :7]
-    out["current_pose"] = gripper_history[:, -1]  # (B, G, 7)
-    pcds = on_device(batch.get("pcds"))
-    gt = on_device(batch.get("gt_gripper_pred"))
+        bounds = on_device(workspace_bounds).to(torch.float32)
+        out: Dict[str, Any] = {}
+        gripper_history = on_device(batch["gripper_history"])
+        out["curr_closedness"] = gripper_history[..., 7:8]
+        gripper_history = gripper_history[..., :7]
+        out["current_pose"] = gripper_history[:, -1]  # (B, G, 7)
+        pcds = on_device(batch.get("pcds"))
+        gt = on_device(batch.get("gt_gripper_pred"))
 
-    if config.relative:
-        # Translate the history by the current pose; translate and rotate
-        # the ground-truth trajectory.
-        current_pos = out["current_pose"][..., :3]  # (B, G, 3)
-        current_quat = out["current_pose"][..., 3:7]
-        gripper_history = torch.cat(
-            [gripper_history[..., :3] - current_pos[:, None], gripper_history[..., 3:]],
-            dim=-1,
-        )
-        if pcds is not None:
-            # RGB-D mode has a single gripper; pcds are (B, ncam, H, W, 3).
-            pcds = pcds - current_pos[:, 0][:, None, None, None, :]
-        if gt is not None:
-            rel_pos = gt[..., :3] - current_pos[:, None]
-            rel_quat = quaternion_multiply(
-                quaternion_invert(current_quat)[:, None], gt[..., 3:7]
+        if config.relative:
+            # Translate the history by the current pose; translate and rotate
+            # the ground-truth trajectory.
+            current_pos = out["current_pose"][..., :3]  # (B, G, 3)
+            current_quat = out["current_pose"][..., 3:7]
+            gripper_history = torch.cat(
+                [gripper_history[..., :3] - current_pos[:, None], gripper_history[..., 3:]],
+                dim=-1,
             )
-            gt = torch.cat([rel_pos, rel_quat, gt[..., 7:]], dim=-1)
+            if pcds is not None:
+                # RGB-D mode has a single gripper; pcds are (B, ncam, H, W, 3).
+                pcds = pcds - current_pos[:, 0][:, None, None, None, :]
+            if gt is not None:
+                rel_pos = gt[..., :3] - current_pos[:, None]
+                rel_quat = quaternion_multiply(
+                    quaternion_invert(current_quat)[:, None], gt[..., 3:7]
+                )
+                gt = torch.cat([rel_pos, rel_quat, gt[..., 7:]], dim=-1)
 
-    out["gripper_history"] = normalize_trajectory(
-        gripper_history, bounds, config.rotation_parametrization,
-        config.quaternion_format,
-    )
-    if pcds is not None:
-        out["pcds"], in_bounds = normalize_pointcloud(pcds, bounds)
-        valid = on_device(batch.get("pcd_valid_mask"))
-        out["pcd_valid_mask"] = in_bounds if valid is None else (valid & in_bounds)
-        rgbs = on_device(batch.get("rgbs"))
-        if rgbs is not None and rgbs.dtype == torch.uint8:
-            rgbs = rgbs.to(torch.float32) / 255.0
-        out["rgbs"] = rgbs
-    if batch.get("vertices") is not None:
-        out["vertices"], _ = normalize_pos(on_device(batch["vertices"]), bounds)
-        out["vertex_features"] = on_device(batch["vertex_features"])
-        out["vertices_valid_mask"] = on_device(batch.get("vertices_valid_mask"))
-    if gt is not None:
-        if gt.shape[-1] != 8:
-            raise ValueError(f"gt_gripper_pred must be (..., 8), got {tuple(gt.shape)}")
-        out["gt_openness"] = gt[..., 7:]
-        out["gt_gripper_pred"] = normalize_trajectory(
-            gt[..., :7], bounds, config.rotation_parametrization,
+        out["gripper_history"] = normalize_trajectory(
+            gripper_history, bounds, config.rotation_parametrization,
             config.quaternion_format,
         )
-    out["gt_head_yaw"] = on_device(batch.get("gt_head_yaw"))
-    out["instruction"] = on_device(batch.get("instruction"))
-    return out
+        if pcds is not None:
+            out["pcds"], in_bounds = normalize_pointcloud(pcds, bounds)
+            valid = on_device(batch.get("pcd_valid_mask"))
+            out["pcd_valid_mask"] = in_bounds if valid is None else (valid & in_bounds)
+            rgbs = on_device(batch.get("rgbs"))
+            if rgbs is not None and rgbs.dtype == torch.uint8:
+                rgbs = rgbs.to(torch.float32) / 255.0
+            out["rgbs"] = rgbs
+        if batch.get("vertices") is not None:
+            out["vertices"], _ = normalize_pos(on_device(batch["vertices"]), bounds)
+            out["vertex_features"] = on_device(batch["vertex_features"])
+            out["vertices_valid_mask"] = on_device(batch.get("vertices_valid_mask"))
+        if gt is not None:
+            if gt.shape[-1] != 8:
+                raise ValueError(f"gt_gripper_pred must be (..., 8), got {tuple(gt.shape)}")
+            out["gt_openness"] = gt[..., 7:]
+            out["gt_gripper_pred"] = normalize_trajectory(
+                gt[..., :7], bounds, config.rotation_parametrization,
+                config.quaternion_format,
+            )
+        out["gt_head_yaw"] = on_device(batch.get("gt_head_yaw"))
+        out["instruction"] = on_device(batch.get("instruction"))
+        return out
 
 
 def diffusion_train_loss(
@@ -490,21 +493,22 @@ def sample_trajectory(
 
     weights_sum = None
     for i, t in enumerate(timesteps.tolist()):
-        t_batch = torch.full((B,), float(t), device=device)
-        pred, head_yaw, weights = model.denoise(trajectory, t_batch, fixed)
-        prev_t = t - step_ratio
-        noise = step_noise[i] if stochastic else None
-        pos = pos_sched.step(
-            pred[..., :3], t, trajectory[..., :3],
-            noise=None if noise is None else noise[..., :3], prev_t=prev_t,
-        )
-        rot = rot_sched.step(
-            pred[..., 3:9], t, trajectory[..., 3:9],
-            noise=None if noise is None else noise[..., 3:9], prev_t=prev_t,
-        )
-        trajectory = torch.cat([pos, rot], dim=-1)
-        if weights is not None:
-            weights_sum = weights if weights_sum is None else weights_sum + weights
+        with span("sampler/step"):
+            t_batch = torch.full((B,), float(t), device=device)
+            pred, head_yaw, weights = model.denoise(trajectory, t_batch, fixed)
+            prev_t = t - step_ratio
+            noise = step_noise[i] if stochastic else None
+            pos = pos_sched.step(
+                pred[..., :3], t, trajectory[..., :3],
+                noise=None if noise is None else noise[..., :3], prev_t=prev_t,
+            )
+            rot = rot_sched.step(
+                pred[..., 3:9], t, trajectory[..., 3:9],
+                noise=None if noise is None else noise[..., 3:9], prev_t=prev_t,
+            )
+            trajectory = torch.cat([pos, rot], dim=-1)
+            if weights is not None:
+                weights_sum = weights if weights_sum is None else weights_sum + weights
     # Openness and head yaw come from the final denoiser call; attention
     # weights are averaged over all steps.
     openness = pred[..., 9:]

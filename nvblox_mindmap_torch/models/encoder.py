@@ -50,6 +50,7 @@ from nvblox_mindmap_torch.models.layers import (
 from nvblox_mindmap_torch.ops.fps import farthest_point_sampling, gather_points
 from nvblox_mindmap_torch.ops.masks import downscale_mask
 from nvblox_mindmap_torch.ops.positional import rotary_pe_3d
+from nvblox_mindmap_torch.utils.timers import span
 
 INSTRUCTION_DIM = 512  # CLIP text features, upstream's instruction encoding
 
@@ -135,13 +136,14 @@ class Encoder(nn.Module):
         B, ncam, H, W, _ = rgb.shape
         flat_rgb = rgb.reshape(B * ncam, H, W, 3)
         chunk = self.backbone_chunk_images
-        if chunk and B * ncam > chunk and (B * ncam) % chunk == 0:
-            # One chunk's backbone activations live at a time. A chunk that
-            # does not divide the images falls back to one call, as in the
-            # JAX package.
-            feats = torch.cat([self.feature_extractor(x) for x in flat_rgb.split(chunk)])
-        else:
-            feats = self.feature_extractor(flat_rgb)  # (B*ncam, h, w, C)
+        with span("encoder/backbone"):
+            if chunk and B * ncam > chunk and (B * ncam) % chunk == 0:
+                # One chunk's backbone activations live at a time. A chunk that
+                # does not divide the images falls back to one call, as in the
+                # JAX package.
+                feats = torch.cat([self.feature_extractor(x) for x in flat_rgb.split(chunk)])
+            else:
+                feats = self.feature_extractor(flat_rgb)  # (B*ncam, h, w, C)
         h, w = feats.shape[1:3]
         feats = self.image_feature_encoder(feats)
         pos = resize_bilinear(positions.reshape(B * ncam, H, W, 3), (h, w))
@@ -244,11 +246,12 @@ class Encoder(nn.Module):
         Invalid tokens are zeroed (not removed, so shapes stay fixed); the
         returned mask marks samples that landed on non-zero features.
         """
-        B, N, C = context_features.shape
-        masked = torch.where(context_valid_mask[..., None], context_features, 0.0)
-        k = max(N // self.fps_subsampling_factor, 1)
-        idx = farthest_point_sampling(masked, k, start_idx=0)
-        sampled_feats = gather_points(masked, idx)
-        sampled_pos = gather_points(context_pos, idx)
-        sampled_valid = torch.any(sampled_feats != 0, dim=-1)
-        return sampled_feats, sampled_pos, sampled_valid
+        with span("encoder/fps"):
+            B, N, C = context_features.shape
+            masked = torch.where(context_valid_mask[..., None], context_features, 0.0)
+            k = max(N // self.fps_subsampling_factor, 1)
+            idx = farthest_point_sampling(masked, k, start_idx=0)
+            sampled_feats = gather_points(masked, idx)
+            sampled_pos = gather_points(context_pos, idx)
+            sampled_valid = torch.any(sampled_feats != 0, dim=-1)
+            return sampled_feats, sampled_pos, sampled_valid

@@ -82,7 +82,7 @@ from nvblox_mindmap_torch.training.checkpoint import (
     save_training_args,
 )
 from nvblox_mindmap_torch.training.optimizer import Optimizer, frozen_feature_extractor_mask
-from nvblox_mindmap_torch.utils.timers import Timer, timer_status_string
+from nvblox_mindmap_torch.utils.timers import Timer, span, timer_status_string
 
 logger = logging.getLogger("nvblox_mindmap_torch.trainer")
 
@@ -253,54 +253,58 @@ class Trainer:
         global batch (host arrays: the rank takes its rows) or the rank's
         part on the device. ``noise`` and ``timesteps`` are the global
         batch's; they default to draws seeded by (``seed``, ``step``)."""
-        self.model.train()
-        prepared = prepare_inputs(shard_batch(batch, self.mesh), self.workspace_bounds,
-                                  self.model_config, device=self.device)
-        gt = prepared["gt_gripper_pred"]
-        if noise is None or timesteps is None:
-            # diffusion_train_loss's draws, in its order, for the global batch.
-            generator = self._generator(self.config.seed, step)
-            shape = (gt.shape[0] * self.mesh.world_size,) + tuple(gt.shape[1:])
-            if noise is None:
-                noise = torch.randn(shape, generator=generator, device=self.device,
-                                    dtype=gt.dtype)
-            if timesteps is None:
-                timesteps = torch.randint(0, self.model_config.diffusion_timesteps,
-                                          shape[:1], generator=generator, device=self.device)
-        noise, timesteps = (local_rows(torch.as_tensor(x, device=self.device), self.mesh)
-                            for x in (noise, timesteps))
-        losses = diffusion_train_loss(self.model, prepared, noise, timesteps, impl="eager")
-        losses["total"].backward()
+        with span("trainer/loss_and_grads"):
+            self.model.train()
+            prepared = prepare_inputs(shard_batch(batch, self.mesh), self.workspace_bounds,
+                                      self.model_config, device=self.device)
+            gt = prepared["gt_gripper_pred"]
+            if noise is None or timesteps is None:
+                # diffusion_train_loss's draws, in its order, for the global batch.
+                generator = self._generator(self.config.seed, step)
+                shape = (gt.shape[0] * self.mesh.world_size,) + tuple(gt.shape[1:])
+                if noise is None:
+                    noise = torch.randn(shape, generator=generator, device=self.device,
+                                        dtype=gt.dtype)
+                if timesteps is None:
+                    timesteps = torch.randint(0, self.model_config.diffusion_timesteps,
+                                              shape[:1], generator=generator, device=self.device)
+            noise, timesteps = (local_rows(torch.as_tensor(x, device=self.device), self.mesh)
+                                for x in (noise, timesteps))
+            losses = diffusion_train_loss(self.model, prepared, noise, timesteps, impl="eager")
+            losses["total"].backward()
         return self._average_over_ranks({k: v.detach() for k, v in losses.items()})
 
     def _average_over_ranks(self, losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The trainable gradients and ``losses`` averaged over the process
         group's ranks in place, in one all-reduce of one flat buffer (the
         frozen backbone has no gradient and is not in it). Without a process
-        group there is nothing to do."""
+        group there is nothing to do. The exchange is its own span, outside
+        ``trainer/loss_and_grads``."""
         if not (dist.is_available() and dist.is_initialized()):
             return losses
-        grads = [p.grad for p in self.optimizer.params if p.grad is not None]
-        names = sorted(losses)
-        flat = torch.cat([g.reshape(-1) for g in grads]
-                         + [losses[k].reshape(1).to(torch.float32) for k in names])
-        dist.all_reduce(flat)
-        flat /= self.mesh.world_size
-        offset = 0
-        for g in grads:
-            g.copy_(flat[offset:offset + g.numel()].view_as(g))
-            offset += g.numel()
-        return {k: flat[offset + i] for i, k in enumerate(names)}
+        with span("trainer/all_reduce"):
+            grads = [p.grad for p in self.optimizer.params if p.grad is not None]
+            names = sorted(losses)
+            flat = torch.cat([g.reshape(-1) for g in grads]
+                             + [losses[k].reshape(1).to(torch.float32) for k in names])
+            dist.all_reduce(flat)
+            flat /= self.mesh.world_size
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+            return {k: flat[offset + i] for i, k in enumerate(names)}
 
     def train_one_step(self, batch: Dict[str, Any], step: int,
                        noise: Optional[torch.Tensor] = None,
                        timesteps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """One micro-batch: loss, backward and optimizer step (an update
         every ``accumulate_grad_batches`` calls). Returns the losses."""
-        with Timer("step/train/compute"):
+        with span("trainer/step"):
             losses = self.compute_loss_and_grads(batch, step, noise, timesteps)
-            self.optimizer.step()
-            self.optimizer.zero_grad()
+            with span("trainer/optimizer"):
+                self.optimizer.step()
+                self.optimizer.zero_grad()
         return losses
 
     @torch.no_grad()

@@ -1,18 +1,19 @@
 """Hierarchical named timers (host clock).
 
 Port of ``nvblox_mindmap_tpu/utils/timers.py``. Timers are named with
-'/'-separated paths ("step/train/compute"); the registry accumulates count,
+'/'-separated paths ("step/load_batch"); the registry accumulates count,
 total, last and max and renders an aligned status report.
 
 Device work is asynchronous, so a host clock around it measures the time to
 enqueue it. Where the JAX package asks its callers to wait on their arrays,
 a ``Timer(name, synchronize=True)`` synchronizes the CUDA device when it
 starts and stops, so it measures the work done. ``ProfilerTrace`` records
-the device's own timeline.
+the device's own timeline, and ``span`` names the program's phases on it.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 import socket
 import time
@@ -126,10 +127,36 @@ def print_timers():
     print(timer_status_string())
 
 
+SPAN_PREFIX = "mindmap/"
+_NO_SPAN = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A named range of the program's own work on the profiler's timeline:
+    ``with span("policy/goal"): ...``.
+
+    While a ``torch.profiler`` profile records (a ``ProfilerTrace``, or the
+    benchmark's traced runs), it is a ``record_function`` range called
+    ``SPAN_PREFIX + name`` in the same trace as the CUDA kernels and copies,
+    so every launch and idle gap falls inside the innermost span the host
+    was in. Otherwise it is one shared no-op context after one check: no
+    allocation, no clock, no registry. It never waits for the device: its
+    duration is the host's time in the phase, and the device's time under it
+    is read from the trace through each launch's correlation id. Names are
+    '/'-paths as ``Timer``'s; a child span nests inside its parent on the
+    thread that opens both.
+    """
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
 class ProfilerTrace:
     """A ``torch.profiler`` trace of the work inside the context (the
     counterpart of the JAX package's ``jax.profiler`` trace): host
-    activity, and the CUDA kernels too where a card is present. On exit it
+    activity, the program's ``span`` ranges, and the CUDA kernels too where
+    a card is present. It is the exporter of those spans: on exit it
     writes a Chrome trace (JSON, viewable in Perfetto or chrome://tracing)
     into ``log_dir`` and keeps its path in ``path``. Usage:
 
