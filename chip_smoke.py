@@ -26,7 +26,12 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    for bf16 inputs too, and at the language layers' shapes over a 53-token
    instruction (L = 4096, 1 and 820, masked and unmasked, B = 1 and 8);
    and times both kernels at L = 1..8 (phase ``threshold``: the
-   measurement behind the split kernel's limit);
+   measurement behind the split kernel's limit); holds the FPS kernel
+   (``csrc/fps.cu``) to the eager loop on the card, picks and running
+   distances bit for bit, one launch a call, and times both beside the
+   kernel's bound at the cells', the flagship's and the fixtures' shapes
+   (phase ``fps_kernel``; the closed-loop and train phases check one FPS
+   launch a goal and a step);
 4. times the RADIO ViT-B/16 backbone's forward (phase ``vit``) at the
    flagship's 2 cameras x 512x512, for batch 1 and 8, beside its bound;
 5. runs keypose prediction at full width (embedding 120, 8 heads, seeded
@@ -292,6 +297,19 @@ def reset_flash_counts():
 
     fa.flash_attention.launches = 0
     fa.KERNEL_LAUNCHES.update(dict.fromkeys(fa.KERNELS, 0))
+
+
+def fps_launches():
+    """The FPS kernel's launches in this process since the last reset."""
+    from nvblox_mindmap_torch.ops.fps import farthest_point_sampling
+
+    return farthest_point_sampling.launches
+
+
+def reset_fps_launches(to=0):
+    from nvblox_mindmap_torch.ops.fps import farthest_point_sampling
+
+    farthest_point_sampling.launches = to
 
 
 def gpu_time_ms(fn, reps=20, iters=5):
@@ -737,6 +755,74 @@ def measure_vit():
               bound_share=bound_ms / device_ms, tflops_per_s=flops / device_ms / 1e9)
 
 
+# Feature-space FPS (csrc/fps.cu) at the shapes the paths give it: the
+# benchmark cells' 3072 x 120 rows at B = 1 (goals, loops) and B = 32
+# (training), the flagship's 4096 tokens, the trained fixtures' width 72.
+FPS_SHAPES = (("cells_goal", 1, 3072, 120, 614), ("cells_train", 32, 3072, 120, 614),
+              ("flagship", 1, 4096, 120, 819), ("fixture", 1, 512, 72, 128))
+
+
+def fps_bound(B, N, C, K):
+    """(bound_ms, bound_by): the larger of the K - 1 picks' 3*B*N*C fp32
+    operations each (difference, square, sum) at the fp32 peak and the
+    points read once and the picks written once at the HBM rate."""
+    t_ops = (K - 1) * 3.0 * B * N * C / PEAK_FP32_FLOPS * 1e3
+    t_bytes = (4.0 * B * N * C + 8.0 * B * K) / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def event_ms(fn, reps):
+    """Device time of one ``fn()`` call between CUDA events, over ``reps``
+    calls after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_fps_kernel():
+    """Phase ``fps_kernel``: at each of ``FPS_SHAPES`` the kernel's picks and
+    running distances equal the eager loop's on the card, one launch a call;
+    its time beside its bound and the eager loop's. Returns the rows."""
+    import torch
+
+    from nvblox_mindmap_torch.ops import fps
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    rows = {}
+    for name, B, N, C, K in FPS_SHAPES:
+        points = torch.randn(B, N, C, device="cuda", generator=gen)
+        keep = torch.rand(B, N, device="cuda", generator=gen) < 0.9  # zeroed tokens tie
+        points = torch.where(keep[..., None], points, 0.0)
+        ref_idx, ref_dist = fps.farthest_point_sampling_reference(points, K)
+        before = fps.farthest_point_sampling.launches
+        idx = fps.farthest_point_sampling(points, K)
+        launches = fps.farthest_point_sampling.launches - before
+        dist = fps.run_kernel(points, K)[1]
+        if not (torch.equal(idx, ref_idx) and torch.equal(dist, ref_dist)) or launches != 1:
+            raise AssertionError(f"fps_kernel {name}: {int((idx != ref_idx).sum())} picks "
+                                 f"differ from eager, {launches} launches")
+        kernel_ms = event_ms(lambda: fps.farthest_point_sampling(points, K), 20)
+        plain_ms = event_ms(lambda: fps.farthest_point_sampling_reference(points, K), 3)
+        bound_ms, bound_by = fps_bound(B, N, C, K)
+        lp = fps.launch_params(B, N, C, K)
+        rows[name] = dict(B=B, N=N, C=C, K=K, picks_equal=True, distances_equal=True,
+                          launches_per_call=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / kernel_ms,
+                          speedup=plain_ms / kernel_ms, cluster=lp.cluster,
+                          threads=lp.threads, per_block=lp.per_block, resident=lp.resident)
+        phase("fps_kernel", shape=name, **rows[name])
+    return rows
+
+
 def run_slice(data_type, reps):
     """Phase 5: full-width keypose prediction through the kernels, on the
     mesh-only or the flagship path; ``reps`` is (DDPM-100, DDIM-10) host-clock
@@ -861,7 +947,9 @@ def run_slice(data_type, reps):
             results[name]["profile"] = profile(predict, p50_flash, backbone)
         phase("slice", path=data_type, run=name, **results[name])
 
-    # Feature-space FPS at the path's context size: N // 5 samples.
+    # Feature-space FPS at the path's context size: N // 5 samples. These
+    # timing calls are not the path's: the count goes back to the path's.
+    path_fps = fps_launches()
     N = CONTEXT[data_type]
     for B in (1, 8):
         feats = torch.randn(B, N, EMBEDDING, device="cuda")
@@ -870,6 +958,7 @@ def run_slice(data_type, reps):
                                     for _ in range(10)])
         phase("fps", path=data_type, B=B, N=N, C=EMBEDDING, samples=k, p50_ms=fps_ms,
               q1_ms=q1, q3_ms=q3)
+    reset_fps_launches(path_fps)
     set_default_attention_impl("eager")
     return launches_total
 
@@ -1164,6 +1253,7 @@ def run_closed_loop(steps=6, goals=4, parts_reps=4):
     from nvblox_mindmap_torch.models.pretrained import backbone_feature_fn
     from nvblox_mindmap_torch.ops import flash_attention as fa
     from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
+    from nvblox_mindmap_torch.ops.fps import farthest_point_sampling
 
     torch.manual_seed(0)
     model = DiffuserActor(model_config("rgbd_and_mesh"), device="cuda")
@@ -1223,10 +1313,15 @@ def run_closed_loop(steps=6, goals=4, parts_reps=4):
 
     # The main path: whole goals through the kernels, counted.
     reset_flash_counts()
+    fps_before = farthest_point_sampling.launches
     goal_times, goal_states = [], []
     for _ in range(goals):
         goal_times.append(host_ms(lambda: goal_states.append(policy.get_new_goal(env))))
     torch.cuda.synchronize()
+    fps_calls = farthest_point_sampling.launches - fps_before
+    if fps_calls != goals:
+        raise AssertionError(f"closed_loop: {fps_calls} FPS kernel launches over {goals} "
+                             "goals, expected one a goal")
     launches = fa.flash_attention.launches
     by_kernel = dict(fa.KERNEL_LAUNCHES)
     T = CLOSED_LOOP_STEPS
@@ -1266,6 +1361,7 @@ def run_closed_loop(steps=6, goals=4, parts_reps=4):
           vertices_sampled=VERTICES, image_valid_share=image_valid_share,
           sampler="ddim10", goals=goals, launches=launches, launches_by_kernel=by_kernel,
           launches_per_goal=launches // goals, flash_vs_eager_max_abs_err=err,
+          fps_launches_per_goal=fps_calls // goals,
           step=dict(p50_ms=step_p50, q1_ms=step_q1, q3_ms=step_q3, reps=steps,
                     parts={k: summary(v) for k, v in parts.items()}, profile=step_profile),
           goal=dict(p50_ms=goal_p50, q1_ms=goal_q1, q3_ms=goal_q3, reps=goals,
@@ -1399,6 +1495,7 @@ def run_training_phase(smi):
         convert_to_flash_attention,
     )
     from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
+    from nvblox_mindmap_torch.ops.fps import farthest_point_sampling
     from nvblox_mindmap_torch.training.trainer import Trainer, TrainerConfig
 
     cfg = model_config("rgbd_and_mesh")
@@ -1443,10 +1540,15 @@ def run_training_phase(smi):
     optimizer.zero_grad()
     torch.cuda.reset_peak_memory_stats()
     times, step_losses = [], []
+    fps_before = farthest_point_sampling.launches
     for step in range(3, 3 + TRAIN_TIMED_STEPS):
         times.append(host_ms(lambda: step_losses.append(
             float(trainer.train_one_step(batches[step % 2], step)["total"]))))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fps_calls = farthest_point_sampling.launches - fps_before
+    if fps_calls != TRAIN_TIMED_STEPS:
+        raise AssertionError(f"train: {fps_calls} FPS kernel launches over "
+                             f"{TRAIN_TIMED_STEPS} steps, expected one a step")
     train_counts = flash_counts()
     if any(train_counts.values()):
         raise AssertionError(f"train steps launched flash kernels {train_counts}")
@@ -1528,7 +1630,9 @@ def run_training_phase(smi):
                     samples_per_s=B / p50 * 1e3, peak_memory_gb=peak_gb,
                     flops=flops, tflops_per_s=flops / p50 / 1e9,
                     fp32_peak_share=flops / p50 * 1e3 / PEAK_FP32_FLOPS,
-                    flash_launches=train_counts, losses=step_losses, profile=prof),
+                    flash_launches=train_counts,
+                    fps_launches_per_step=fps_calls // TRAIN_TIMED_STEPS,
+                    losses=step_losses, profile=prof),
           eval_batch=dict(p50_ms=eval_p50, q1_ms=eval_q1, q3_ms=eval_q3, reps=len(eval_times),
                           sampler=f"ddim{EVAL_STEPS}", launches_per_batch=per_batch,
                           mean_loss=mean_loss, rot_error_deg=float(metrics["rot_error_deg"]),
@@ -4334,6 +4438,7 @@ def task_success_one(task, serving, T):
 
         Policy = policies.NvbloxDiffuserActorPolicy
         reset_flash_counts()
+        reset_fps_launches()
         with mock.patch.object(Policy, "get_new_goal", timed("goal", Policy.get_new_goal)), \
                 mock.patch.object(runner, "run_one_episode",
                                   timed("episode", runner.run_one_episode)), \
@@ -4343,6 +4448,7 @@ def task_success_one(task, serving, T):
                                                        "last.ckpt"),
                 demos_subset=TASK_SUCCESS_SUBSET, task=task, device="cuda", **serving)
         counts = flash_counts()
+        fps_n = fps_launches()
     finally:
         shutil.rmtree(root, ignore_errors=True)
     goals = len(times["goal"])
@@ -4361,11 +4467,12 @@ def task_success_one(task, serving, T):
                success_rate=summary["success_rate"],
                num_successes=summary.get("num_successes"),
                summary=summary, goals=goals, launches=counts,
-               launches_per_goal=per_sample(T), goal=summary_ms(times["goal"]),
+               launches_per_goal=per_sample(T), fps_launches=fps_n,
+               goal=summary_ms(times["goal"]),
                episodes=len(times["episode"]),
                episode=summary_ms(times["episode"]), generate_s=gen_s,
                seconds=time.perf_counter() - t_task)
-    return row, counts, sorted(PATH_SHAPES)
+    return row, dict(counts, fps=fps_n), sorted(PATH_SHAPES)
 
 
 def spatial_memory_one():
@@ -4385,6 +4492,7 @@ def spatial_memory_one():
     t_phase = time.perf_counter()
     launches = {}
     results = {}
+    reset_fps_launches()
     root = tempfile.mkdtemp(prefix="mindmap_spatial_memory_")
     try:
         ds = os.path.join(root, "demos")
@@ -4431,8 +4539,8 @@ def spatial_memory_one():
                   eval_seeds=SPATIAL_MEMORY_SEEDS, sampler=f"ddpm{OPEN_LOOP_STEPS}",
                   mesh_pick_error_m=mesh, rgbd_pick_error_m=rgbd, rgbd_over_mesh=rgbd / mesh,
                   mean_predictor_floor_m=floor, results=results, generate_and_fuse_s=gen_fuse_s,
-                  seconds=time.perf_counter() - t_phase)
-    return fields, launches, sorted(PATH_SHAPES)
+                  fps_launches=fps_launches(), seconds=time.perf_counter() - t_phase)
+    return fields, dict(launches, fps=fps_launches()), sorted(PATH_SHAPES)
 
 
 def probe_one():
@@ -4466,10 +4574,12 @@ def probe_one():
     try:
         out = os.path.join(root, "place_grounding.json")
         reset_flash_counts()
+        reset_fps_launches()
         with mock.patch.object(Policy, "get_new_goal", timed), recording_shapes():
             probe.main(["--checkpoint", PROBE_FIXTURE, "--scenes", str(PROBE_SCENES),
                         "--out", out])
         counts = flash_counts()
+        fps_n = fps_launches()
         with open(out) as f:
             result = json.load(f)
     finally:
@@ -4486,9 +4596,9 @@ def probe_one():
     fields = dict(fixture=os.path.relpath(PROBE_FIXTURE, ROOT), scenes=PROBE_SCENES,
                   seed_base=9000, sampler=f"ddpm{PROBE_STEPS}", **summary, rows=rows,
                   goals=len(goal_ms), goal=summary_ms(goal_ms), launches=counts,
-                  launches_per_goal=per_sample(PROBE_STEPS),
+                  launches_per_goal=per_sample(PROBE_STEPS), fps_launches=fps_n,
                   seconds=time.perf_counter() - t_phase)
-    return fields, counts, sorted(PATH_SHAPES)
+    return fields, dict(counts, fps=fps_n), sorted(PATH_SHAPES)
 
 
 def run_experiments(beside=None):
@@ -4498,8 +4608,8 @@ def run_experiments(beside=None):
     the samplers' dispatch: the card idles ~0.9 of the time), so together
     they take about the time of the longest; their host times are measured
     with the others running, and with ``beside()``, which this process runs
-    meanwhile. Returns each kernel's launches over all six, and what
-    ``beside`` returned."""
+    meanwhile. Returns each kernel's launches over all six (the FPS
+    kernel's under ``fps``), and what ``beside`` returned."""
     import concurrent.futures
     import multiprocessing
 
@@ -4580,49 +4690,65 @@ def main() -> int:
                  if "registers" in line])
 
     checks = check_kernels()
+    fps_rows = check_fps_kernel()
     measure_threshold()
     measure_vit()
+    # The FPS kernel's launches on each main path, from 0 at the path's
+    # start (check_fps_kernel's own calls are not among them).
+    fps_by_path = {}
+
+    def counting_fps(path, fn, *args, **kwargs):
+        reset_fps_launches()
+        result = fn(*args, **kwargs)
+        fps_by_path[path] = fps_by_path.get(path, 0) + fps_launches()
+        return result
+
     launches = {}
     for data_type, reps in (("mesh", (4, 20)), ("rgbd_and_mesh", (6, 24))):
-        path_launches = run_slice(data_type, reps)
+        path_launches = counting_fps(f"predict_{data_type}", run_slice, data_type, reps)
         for kernel, n in path_launches.items():
             launches[kernel] = launches.get(kernel, 0) + n
     check_mapper()
     measure_fusion()
-    for kernel, n in run_closed_loop().items():
+    for kernel, n in counting_fps("closed_loop", run_closed_loop).items():
         launches[kernel] = launches.get(kernel, 0) + n
-    train_launches, resident_step_ms = run_training_phase(smi)
+    train_launches, resident_step_ms = counting_fps("train", run_training_phase, smi)
     for kernel, n in train_launches.items():
         launches[kernel] = launches.get(kernel, 0) + n
     work = tempfile.mkdtemp(prefix="mindmap_loop_")
     ddp = None
     try:
-        app_launches, ddp = run_train_app(resident_step_ms, work)
+        app_launches, ddp = counting_fps("train_app", run_train_app, resident_step_ms, work)
         add_launches(launches, app_launches)
         # The task-success and spatial-memory workers are host-bound: the
         # torchrun run of phase ddp, and in this process the CLIP and
-        # language phases, run beside them.
-        experiment_launches, clip_launches = run_experiments(
-            beside=lambda: run_clip_and_language(work))
+        # language phases, run beside them. This process's FPS launches
+        # meanwhile are the CLIP and language phases'; the workers count
+        # their own.
+        experiment_launches, clip_launches = counting_fps(
+            "clip_and_language", run_experiments, beside=lambda: run_clip_and_language(work))
+        fps_by_path["experiments"] = experiment_launches.pop("fps")
         add_launches(launches, experiment_launches)
         add_launches(launches, clip_launches)
         add_launches(launches, finish_ddp(ddp))
         npz = os.path.join(work, "radio_v25_b.npz")
         save_random_backbone(npz)
         dataset = os.path.join(work, "dataset")
-        demo = run_datagen_app(dataset, npz)
+        demo = counting_fps("datagen_app", run_datagen_app, dataset, npz)
         run_reconstruction(dataset, demo, work)
-        loop_launches, in_process = run_closed_loop_app(
-            dataset, os.path.join(work, "best.ckpt"), npz)
+        loop_launches, in_process = counting_fps(
+            "closed_loop_app", run_closed_loop_app, dataset, os.path.join(work, "best.ckpt"),
+            npz)
         add_launches(launches, loop_launches)
-        add_launches(launches, run_remote_loop(dataset, os.path.join(work, "best.ckpt"), npz,
-                                               in_process))
+        add_launches(launches, counting_fps(
+            "remote_loop", run_remote_loop, dataset, os.path.join(work, "best.ckpt"), npz,
+            in_process))
         run_runtime_tools(dataset, work)
     finally:
         stop_ddp(ddp)
         shutil.rmtree(work, ignore_errors=True)
-    add_launches(launches, run_serving())
-    add_launches(launches, run_api_surface())
+    add_launches(launches, counting_fps("serving", run_serving))
+    add_launches(launches, counting_fps("api_surface", run_api_surface))
     phase("path_shapes", shapes=[dict(zip(("B", "H", "L", "S", "D", "masked"), shape))
                                  for shape in check_path_shapes(checks)])
 
@@ -4682,6 +4808,17 @@ def main() -> int:
             "fixture_path_ms": checks[fixture_key]["kernel_ms"],
             "fixture_path_shape": fixture_shape,
         })
+    entries.append({
+        "name": "fps",
+        "route": "cuda",
+        "source": "nvblox_mindmap_torch/csrc/fps.cu",
+        "replaces": "none: nvblox_mindmap_tpu/ops/fps.py is a lax.scan that XLA compiles",
+        "launches": sum(fps_by_path.values()),
+        "launches_by_path": fps_by_path,
+        "picks_equal_to_eager": all(r["picks_equal"] for r in fps_rows.values()),
+        **{f"{name}_{key}": row[key] for name, row in fps_rows.items()
+           for key in ("kernel_ms", "plain_ms", "bound_ms", "share")},
+    })
     split_entry = next(e for e in entries if e["name"] == "flash_attention_split")
     split_entry.update(goal_gripper_ms=checks[("flagship_goal_cross", 1)]["kernel_ms"],
                        goal_gripper_shape="flagship encode_goal_gripper B=1 H=8 L=1 S=4096 "

@@ -17,13 +17,16 @@ package (``tests/test_torch_image_path.py``): the two round bf16 at other
 places. The mapper: fp32 fields and surface vertices 1e-5, fp16 pools and
 surface features 1e-3 (``tests/test_torch_mapping.py``'s bounds). A train
 step: the loss rtol 1e-5, gradients rtol 1e-3 / atol 1e-5 (fp32 without
-TF32 on both, other summation orders through forward and backward).
+TF32 on both, other summation orders through forward and backward). The FPS
+kernel: its picks and running distances equal to the bit the eager loop's on
+the card.
 """
 import numpy as np
 import pytest
 import torch
 
 from nvblox_mindmap_torch.ops import flash_attention as fa
+from nvblox_mindmap_torch.ops import fps as fps_ops
 
 pytestmark = pytest.mark.cuda
 ATOL = 2e-5
@@ -448,3 +451,113 @@ def test_train_step_on_cuda_matches_cpu(gen):
         assert fa.KERNEL_LAUNCHES[TILE] - before[TILE] == 8 * 10
     finally:
         set_default_attention_impl("eager")
+
+
+# ---------------------------------------------------------------- FPS kernel
+
+
+def _fps_points(gen, B, N, C, valid=0.7):
+    """Normal features with about 1 - ``valid`` of the tokens zeroed, as
+    ``Encoder.run_fps`` zeroes invalid ones: exact ties."""
+    points = torch.randn(B, N, C, device="cuda", generator=gen)
+    keep = torch.rand(B, N, device="cuda", generator=gen) < valid
+    return torch.where(keep[..., None], points, 0.0)
+
+
+def _assert_fps_equal(points, K, start_idx=0):
+    ref_idx, ref_dist = fps_ops.farthest_point_sampling_reference(points, K, start_idx)
+    idx, dist = fps_ops.run_kernel(points, K, start_idx)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ref_idx), int((idx != ref_idx).sum())
+    torch.testing.assert_close(dist, ref_dist, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize(
+    "B,N,C,K",
+    [
+        # The cells: goals and loops (B = 1), training (B = 32), and the
+        # flagship's 4096 tokens (a cluster of 9, above the portable 8).
+        (1, 3072, 120, 614),
+        (32, 3072, 120, 614),
+        (1, 4096, 120, 819),
+        (8, 3072, 120, 614),
+        # The fixtures' small widths (72, 24) and lanes below a warp.
+        (1, 645, 72, 129),
+        (3, 300, 24, 60),
+        (2, 50, 3, 10),
+        (4, 64, 9, 16),
+        # Either side of C = 128, from which ATen reads float4 (dim0 >= 128),
+        # rows 16-byte aligned or not.
+        (2, 1000, 127, 200),
+        (2, 1000, 128, 200),
+        (2, 1000, 129, 200),
+        (4, 777, 256, 100),
+        (2, 1000, 130, 200),
+        (2, 300, 131, 40),
+        # K = N and K = 1; N and C off every tile; one point per row.
+        (3, 1001, 37, 1001),
+        (2, 100, 120, 1),
+        (16, 1, 120, 1),
+        # Most of each slice streamed from L2 at every pick; a row so wide
+        # that 16 blocks' candidate vectors leave no room, so fewer blocks
+        # stream all of it.
+        (2, 30000, 64, 40),
+        (1, 12000, 2000, 16),
+    ],
+)
+def test_fps_kernel_equals_eager(gen, B, N, C, K):
+    _assert_fps_equal(_fps_points(gen, B, N, C), K)
+
+
+def test_fps_kernel_edge_rows(gen):
+    """An all-zero row (every distance ties at 0), a row of duplicates, a
+    start index other than 0, and a NaN coordinate (NaN wins every argmax)."""
+    points = _fps_points(gen, 4, 500, 120)
+    points[0] = 0.0
+    points[1] = points[1, :5].repeat(100, 1)
+    points[3, 17, 40] = float("nan")
+    _assert_fps_equal(points, 100)
+    _assert_fps_equal(points, 100, start_idx=321)
+
+
+def test_fps_kernel_launches_once_per_call(gen):
+    points = _fps_points(gen, 2, 3072, 120)
+    before = fps_ops.farthest_point_sampling.launches
+    for _ in range(3):
+        idx = fps_ops.farthest_point_sampling(points, 614)
+    assert fps_ops.farthest_point_sampling.launches - before == 3
+    assert torch.equal(idx, fps_ops.farthest_point_sampling_reference(points, 614)[0])
+    from nvblox_mindmap_torch.models.encoder import Encoder
+
+    enc = Encoder(embedding_dim=120, fps_subsampling_factor=5, data_type="mesh").cuda()
+    mask = torch.ones(2, 3072, dtype=torch.bool, device="cuda")
+    before = fps_ops.farthest_point_sampling.launches
+    enc.run_fps(points, torch.zeros(2, 3072, 3, device="cuda"), mask)
+    assert fps_ops.farthest_point_sampling.launches - before == 1
+
+
+def test_fps_kernel_without_distances_stores_none(gen):
+    """The program's calls ask for no running distances: the same picks,
+    one launch, and no (B, N) output."""
+    points = _fps_points(gen, 3, 3072, 120)
+    before = fps_ops.farthest_point_sampling.launches
+    idx, dist = fps_ops.run_kernel(points, 614, with_distances=False)
+    assert dist is None
+    assert fps_ops.farthest_point_sampling.launches - before == 1
+    assert torch.equal(idx, fps_ops.farthest_point_sampling_reference(points, 614)[0])
+
+
+def test_fps_kernel_raises_instead_of_falling_back(gen):
+    points = _fps_points(gen, 2, 100, 120)
+    before = fps_ops.farthest_point_sampling.launches
+    with pytest.raises(TypeError, match="float32"):
+        fps_ops.farthest_point_sampling(points.double(), 10)
+    with pytest.raises(ValueError, match="contiguous"):
+        fps_ops.farthest_point_sampling(points.transpose(1, 2), 10)
+    with pytest.raises(ValueError, match="num_samples"):
+        fps_ops.farthest_point_sampling(points, 101)
+    with pytest.raises(ValueError, match="start_idx"):
+        fps_ops.farthest_point_sampling(points, 10, start_idx=100)
+    with pytest.raises(ValueError, match="one warp"):  # ATen sums 8 rows of 120 over 64 lanes
+        fps_ops.farthest_point_sampling(points[:1, :8].contiguous(), 2)
+    assert fps_ops.farthest_point_sampling.launches == before

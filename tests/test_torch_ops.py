@@ -228,3 +228,105 @@ def test_fps_single_sample_and_bounds():
     np.testing.assert_array_equal(tfps.farthest_point_sampling(points, 1).numpy(), [[0], [0]])
     with pytest.raises(ValueError):
         tfps.farthest_point_sampling(points, 6)
+
+
+def test_fps_cpu_points_take_the_plain_loop(monkeypatch):
+    """CPU points run the eager loop and never reach the kernel or its
+    launch counter."""
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("CPU points reached the CUDA kernel")
+
+    monkeypatch.setattr(tfps, "run_kernel", no_kernel)
+    points = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 40, 7)).astype(np.float32))
+    before = tfps.farthest_point_sampling.launches
+    idx = tfps.farthest_point_sampling(points, 9, start_idx=4)
+    ref_idx, ref_dist = tfps.farthest_point_sampling_reference(points, 9, 4)
+    np.testing.assert_array_equal(idx.numpy(), ref_idx.numpy())
+    assert tfps.farthest_point_sampling.launches == before
+    # The plain version's running distances: each point's least squared
+    # distance to the first K - 1 picks (the last pick is never folded in).
+    picked = points[torch.arange(2)[:, None], ref_idx[:, :-1]]
+    expect = ((points[:, :, None] - picked[:, None]) ** 2).sum(-1).min(-1).values
+    np.testing.assert_allclose(ref_dist.numpy(), expect.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "rows,C,lanes,vec",
+    [
+        (32 * 3072, 120, 32, False),  # the cells' feature width
+        (16, 64, 32, False),
+        (15, 63, 32, False),
+        (512 * 3, 72, 32, False),  # the fixtures' width
+        (3 * 300, 24, 16, False),
+        (100, 9, 8, False),
+        (100, 3, 2, False),
+        (100, 1, 1, False),
+        (1000, 127, 32, False),
+        (1000, 128, 32, True),  # float4 reads from C = 128 on (dim0 >= 128)
+        (1000, 8160, 32, True),
+    ],
+)
+def test_fps_sum_lanes_follow_aten(rows, C, lanes, vec):
+    """ATen's CUDA sum over C: lanes per row and float4 reads, from its
+    setReduceConfig (Reduce.cuh)."""
+    assert tfps.sum_lanes(rows, C) == (lanes, vec)
+
+
+@pytest.mark.parametrize("rows,C", [(8, 120), (1, 64), (15, 4000), (10**5, 8192)])
+def test_fps_sum_lanes_refuse_more_than_a_warp(rows, C):
+    with pytest.raises(ValueError, match="one warp"):
+        tfps.sum_lanes(rows, C)
+
+
+def test_fps_launch_params_at_the_cells():
+    """A 3072 x 120 row (the benchmark's cells) sits on chip in 8 blocks of
+    384 points, one point a thread; the batch does not change the launch.
+    The flagship's 4096 x 120 row takes the 9 blocks that hold it; a row too
+    large for 16 keeps what fits on chip and streams the rest; a small row
+    takes one block."""
+    lp = tfps.launch_params(32, 3072, 120, 614)
+    assert (lp.lanes, lp.vec, lp.cluster, lp.threads, lp.per_block, lp.resident) == (
+        32, False, 8, 384, 384, 384)
+    assert lp == tfps.launch_params(1, 3072, 120, 614)
+    flagship = tfps.launch_params(1, 4096, 120, 819)
+    assert (flagship.cluster, flagship.per_block, flagship.threads) == (9, 456, 480)
+    assert flagship.resident == flagship.per_block
+    large = tfps.launch_params(2, 30000, 64, 40)
+    assert large.cluster == tfps.MAX_CLUSTER and 0 < large.resident < large.per_block
+    small = tfps.launch_params(3, 64, 12, 16)
+    assert (small.lanes, small.cluster, small.threads, small.resident) == (8, 1, 64, 64)
+    # K = 1 sums nothing, so no ATen order constrains it.
+    assert tfps.launch_params(1, 8, 120, 1).lanes == 1
+    with pytest.raises(ValueError, match="one warp"):
+        tfps.launch_params(1, 8, 120, 2)
+
+
+@pytest.mark.parametrize("N", [1, 31, 439, 3072, 4096, 5000, 30000])
+@pytest.mark.parametrize("C", [3, 72, 120, 131, 1024, 2000, 4000])
+def test_fps_launch_params_fit_the_card(N, C):
+    lp = tfps.launch_params(2, N, C, min(N, 2))
+    assert 1 <= lp.cluster <= tfps.MAX_CLUSTER
+    assert (lp.cluster - 1) * lp.per_block < N <= lp.cluster * lp.per_block
+    assert lp.threads % 32 == 0 and 32 <= lp.threads <= tfps.MAX_THREADS
+    assert lp.stride % 2 == 1 and lp.resident <= lp.stride <= lp.resident + 1
+    assert lp.resident <= lp.per_block
+    assert lp.smem_bytes <= tfps.SMEM_BYTES
+    assert lp.smem_bytes == (4 * C * lp.stride + 4 * lp.per_block
+                             + 8 * lp.cluster * tfps.sel_floats(lp.lanes, lp.vec, C)
+                             + tfps.BEST_BYTES * (tfps.MAX_WARPS + 2 * lp.cluster))
+    # A slice that fits keeps all of itself on chip: here, where six blocks
+    # hold the row beside their two picks' worth of six candidate vectors.
+    if 4 * N * (C + 1) + 6 * 2 * 6 * 4 * C < 6 * tfps.SMEM_BYTES:
+        assert lp.resident == lp.per_block
+
+
+def test_fps_launch_params_wide_rows_stream_over_fewer_blocks():
+    """Where 16 blocks' candidate vectors leave no room for a slice's running
+    distances (C = 2000), the row goes over the most blocks that do, every
+    point read from global memory at each pick."""
+    assert tfps._room(12000, 2000, 32, True, tfps.MAX_CLUSTER) < 0
+    lp = tfps.launch_params(1, 12000, 2000, 16)
+    assert lp.vec and 1 < lp.cluster < tfps.MAX_CLUSTER
+    assert tfps._room(12000, 2000, 32, True, lp.cluster) >= 0
+    assert tfps._room(12000, 2000, 32, True, lp.cluster + 1) < 0
+    assert lp.resident < lp.per_block and lp.smem_bytes <= tfps.SMEM_BYTES
