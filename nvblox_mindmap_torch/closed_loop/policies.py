@@ -258,9 +258,12 @@ class NvbloxDiffuserActorPolicy(PolicyBase):
             for frame in env.get_cameras().values():
                 with span("policy/step/features"):
                     features = self.feature_fn(frame.rgb)
-                dynamic_mask = dynamic_mask_from_segmentation(
-                    frame.segmentation, env.semantic_id_to_class,
-                    self.mapping_config.dynamic_class_labels)
+                with span("policy/step/robot_mask"):
+                    dynamic_mask = dynamic_mask_from_segmentation(
+                        frame.segmentation, env.semantic_id_to_class,
+                        self.mapping_config.dynamic_class_labels)
+                    if dynamic_mask is not None:
+                        dynamic_mask = torch.as_tensor(dynamic_mask, device=self.device)
                 with span("policy/step/integrate"):
                     nvblox_integrate(
                         self.mapper, self.mapping_config, frame.depth, features,

@@ -95,6 +95,11 @@ class Mapper:
         self._mesh_cache: Dict[int, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
         self._color_mesh_cache: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
         self.last_crossing_count: Optional[int] = None
+        # Counters by mapper id, taken at each extraction: the feature pages
+        # in use (``update_feature_mesh``) and the vertices that crossed to
+        # the host (``get_vertices_and_features``).
+        self.live_pages: Dict[int, int] = {}
+        self.surface_vertices: Dict[int, int] = {}
 
     @classmethod
     def dual(cls, config: MappingConfig, device: DeviceLike = None) -> "Mapper":
@@ -164,12 +169,16 @@ class Mapper:
                             max_vertices: int = 65536):
         """Extract up to ``max_vertices`` surface vertices; the total crossing
         count lands in ``last_crossing_count`` (a warning when it overflows
-        the budget)."""
+        the budget) and the feature pages in use in ``live_pages``, both in
+        one copy to the host."""
         with span("mapper/mesh"):
+            state = self.states[mapper_id]
             vertices, features, valid, count = vg.extract_surface_vertices(
-                self.states[mapper_id], self.configs[mapper_id], max_vertices, return_count=True)
+                state, self.configs[mapper_id], max_vertices, return_count=True)
             self._mesh_cache[mapper_id] = (vertices, features, valid)
-            self.last_crossing_count = int(count)
+            count, pages = torch.stack((count, state.num_pages.to(count.dtype))).tolist()
+            self.last_crossing_count = count
+            self.live_pages[mapper_id] = pages
         if self.last_crossing_count > max_vertices:
             logger.warning(
                 "surface extraction overflow: %d zero-crossings > max_vertices=%d; the "
@@ -401,6 +410,7 @@ def get_vertices_and_features(
     ``remove_zero_features`` discards vertices whose features are all zero,
     so featureless points never reach the vertex sample budget. The
     filtering runs on the device; only the kept rows cross to the host.
+    Their count lands in ``mapper.surface_vertices[mapper_id]``.
     """
     with span("mapper/mesh_to_host"):
         vertices, features, valid = mapper.get_feature_mesh(mapper_id)
@@ -410,7 +420,9 @@ def get_vertices_and_features(
         if remove_zero_features:
             nonzero = ~(features == 0).all(dim=1)
             vertices, features = vertices[nonzero], features[nonzero]
-        return vertices.cpu().numpy(), features.cpu().numpy()
+        vertices = vertices.cpu().numpy()
+        mapper.surface_vertices[mapper_id] = len(vertices)
+        return vertices, features.cpu().numpy()
 
 
 def save_feature_mesh_to_disk(

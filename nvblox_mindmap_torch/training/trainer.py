@@ -192,6 +192,12 @@ class Trainer:
             raise ValueError(f"unknown remat_policy {trainer_config.remat_policy!r}")
         self.model_config = model_config
         self.config = trainer_config
+        # cuDNN's deterministic algorithms, for the process: a train step then
+        # repeats bit for bit on the card, as the JAX package's XLA step does.
+        # Without them the weight gradients of the CLIP FPN's convolutions sum
+        # in a varying order, and Adam carries the last bits into the steps
+        # that follow.
+        torch.backends.cudnn.deterministic = True
         self.mesh = make_data_mesh(device)
         if trainer_config.batch_size % self.mesh.world_size:
             raise ValueError(f"batch_size {trainer_config.batch_size} does not split into "

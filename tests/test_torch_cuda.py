@@ -453,6 +453,47 @@ def test_train_step_on_cuda_matches_cpu(gen):
         set_default_attention_impl("eager")
 
 
+def test_clip_fpn_train_step_repeats_bit_for_bit_on_cuda(gen):
+    """The same CLIP rgbd_and_mesh train step twice on the card, from the same
+    weights, batch, noise and timesteps: the same losses and bit-equal
+    gradients (the trainer asks cuDNN for its deterministic algorithms; the
+    FPN's weight gradients otherwise sum in a varying order)."""
+    from nvblox_mindmap_torch.models.diffuser_actor import DiffuserActorConfig
+    from nvblox_mindmap_torch.training.trainer import Trainer, TrainerConfig
+
+    B, size = 16, 128
+    cfg = DiffuserActorConfig(data_type="rgbd_and_mesh", feature_type="clip_resnet50_fpn",
+                              feature_image_size=(16, 16), vertex_feature_dim=120)
+    bounds = np.asarray([[0, 0, 0], [1, 1, 1]], np.float32)
+    quat = torch.randn((B, 4, 1, 4), generator=gen, device="cuda")
+    poses = torch.cat([torch.rand((B, 4, 1, 3), generator=gen, device="cuda"),
+                       quat / quat.norm(dim=-1, keepdim=True),
+                       torch.randint(0, 2, (B, 4, 1, 1), generator=gen, device="cuda")], -1)
+    batch = {"gripper_history": poses[:, :3], "gt_gripper_pred": poses[:, 3:],
+             "vertices": torch.rand((B, 256, 3), generator=gen, device="cuda"),
+             "vertex_features": torch.randn((B, 256, 120), generator=gen, device="cuda"),
+             "vertices_valid_mask": torch.ones((B, 256), dtype=torch.bool, device="cuda"),
+             "rgbs": torch.rand((B, 1, size, size, 3), generator=gen, device="cuda"),
+             "pcds": torch.rand((B, 1, size, size, 3), generator=gen, device="cuda"),
+             "pcd_valid_mask": torch.ones((B, 1, size, size), dtype=torch.bool, device="cuda")}
+    noise = torch.randn((B, 1, 1, 9), generator=gen, device="cuda")
+    timesteps = torch.randint(0, 100, (B,), generator=gen, device="cuda")
+    trainer = Trainer(cfg, TrainerConfig(batch_size=B), bounds, device="cuda")
+    trainer.init_state()
+    runs = []
+    for _ in range(2):
+        losses = trainer.compute_loss_and_grads(batch, 0, noise, timesteps)
+        grads = {n: p.grad.clone() for n, p in trainer.model.named_parameters()
+                 if p.grad is not None}
+        trainer.model.zero_grad(set_to_none=True)
+        runs.append((losses, grads))
+    (losses_a, grads_a), (losses_b, grads_b) = runs
+    assert any(n.startswith("encoder.feature_extractor.fpn") for n in grads_a)
+    assert all(torch.equal(losses_a[k], losses_b[k]) for k in losses_a)
+    assert grads_a.keys() == grads_b.keys()
+    assert all(torch.equal(grads_a[n], grads_b[n]) for n in grads_a)
+
+
 # ---------------------------------------------------------------- FPS kernel
 
 

@@ -6,19 +6,22 @@ closed-loop policy (the committed cube_stacking fixture, and an
 rgbd_and_mesh model for the image phases) and a train step (without and
 with a process group) write their phases as ``mindmap/`` ranges, each child
 inside its parent; the goal's trajectory and the train step's losses are
-bit-equal with and without the profiler.
+bit-equal with and without the profiler. The spans and the mapper's
+counters make the host wait on the device no more often.
 """
+import contextlib
 import dataclasses
 import json
 
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 from nvblox_mindmap_torch.closed_loop import policies as tpol
 from nvblox_mindmap_torch.closed_loop.scripted import make_cube_stacking_env
 from nvblox_mindmap_torch.embodiments.arm import ArmEmbodiment
-from nvblox_mindmap_torch.mapping.constants import get_workspace_bounds
+from nvblox_mindmap_torch.mapping.constants import MapperId, get_workspace_bounds
 from nvblox_mindmap_torch.models import diffuser_actor as tda
 from nvblox_mindmap_torch.models.weights import load_flax_params
 from nvblox_mindmap_torch.scripts.task_success_experiment import mapping_config
@@ -32,8 +35,9 @@ from tests.test_torch_model_parity import (  # noqa: F401 (one_torch_thread: aut
 )
 
 STEPS = 3  # DDIM steps of the goal
-STEP_SPANS = ("policy/step", "policy/step/features", "policy/step/integrate", "mapper/decay",
-              "mapper/depth", "mapper/color", "mapper/features")
+STEP_SPANS = ("policy/step", "policy/step/features", "policy/step/robot_mask",
+              "policy/step/integrate", "mapper/decay", "mapper/depth", "mapper/color",
+              "mapper/features")
 GOAL_SPANS = ("policy/goal", "policy/goal/mesh", "mapper/mesh", "mapper/mesh_to_host",
               "policy/goal/sample_vertices", "policy/goal/predict", "model/prepare_inputs",
               "model/encode", "encoder/fps", "sampler/step")
@@ -178,3 +182,49 @@ def test_train_step_all_reduce_is_its_own_span(tmp_path):
     assert inside(found["trainer/all_reduce"], found["trainer/step"])
     assert all(grads_end <= a for (_, grads_end), (a, _) in
                zip(found["trainer/loss_and_grads"], found["trainer/all_reduce"]))
+
+
+class HostCrossings(TorchFunctionMode):
+    """Counts the calls that make the host wait on a card: reads of tensor
+    values on the host (``cpu``, ``numpy``, ``item``, ``tolist``, truth and
+    number conversions), boolean-mask indexing and ``nonzero`` (the host
+    reads their size), and host data made a tensor on a named device."""
+
+    READS = {"cpu", "numpy", "item", "tolist", "__bool__", "__int__", "__float__",
+             "__index__", "nonzero", "masked_select"}
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = getattr(func, "__name__", "")
+        if name in self.READS:
+            self.count += 1
+        elif name == "__getitem__":
+            index = args[1] if isinstance(args[1], tuple) else (args[1],)
+            self.count += any(isinstance(i, torch.Tensor) and i.dtype == torch.bool
+                              for i in index)
+        elif name in ("as_tensor", "tensor"):
+            self.count += not isinstance(args[0], torch.Tensor) and "device" in kwargs
+        return func(*args, **kwargs)
+
+
+# The rgbd_and_mesh arm policy's sim step and goal (``step_and_goal``): the
+# crossings counted before the robot mask had its span and the mapper its
+# counters.
+STEP_AND_GOAL_CROSSINGS = 39
+
+
+def test_robot_mask_span_and_mapper_counters_add_no_host_wait(tmp_path):
+    counts = []
+    for traced in (False, True):
+        pol = policy("rgbd_and_mesh")
+        with timers.ProfilerTrace(str(tmp_path)) if traced else contextlib.nullcontext():
+            with HostCrossings() as crossings:
+                step_and_goal(pol)
+        counts.append(crossings.count)
+        assert pol.mapper.live_pages[MapperId.STATIC] > 0
+        assert pol.mapper.surface_vertices[MapperId.STATIC] > 0
+    assert counts == [STEP_AND_GOAL_CROSSINGS] * 2
