@@ -61,7 +61,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    fusion per camera) and goals (mesh extraction, vertex sampling,
    back-projection, prediction), profiles one of each, checks that every
    goal launches 3 + 10*T flash calls and that a goal through the kernels
-   matches eager attention (phase ``closed_loop``);
+   matches eager attention (phase ``closed_loop``); then times
+   ``sample_trajectory`` at the goal cells' shapes (B = 1, 3072 keys,
+   DDIM-10), the eager denoiser loop against its CUDA graph replay, bit
+   for bit and launch for launch (phase ``sampler_graph``);
 8. trains the flagship on the card (phase ``train``): ``Trainer`` at
    ``bench.py``'s train width (``rgbd_and_mesh``, B = 32, random weights),
    with the flash impl installed as the process-wide default. After one
@@ -1368,6 +1371,103 @@ def run_closed_loop(steps=6, goals=4, parts_reps=4):
                     parts={k: summary(v) for k, v in goal_parts.items()},
                     profile=goal_profile))
     return by_kernel
+
+
+# The goal cells' context: one camera's 1024 image tokens and 2048 vertices.
+GOAL_KEYS = APP_CONTEXT
+SAMPLER_GRAPH_REPS = 20
+
+
+def measure_sampler_graph(reps=SAMPLER_GRAPH_REPS):
+    """Phase ``sampler_graph``: ``sample_trajectory`` at the goal cells'
+    denoiser shapes (B = 1, 3072 context keys, FPS to 614, DDIM-10, flash
+    attention; a mesh model over 3072 768-d vertices gives the denoiser the
+    same shapes as the cells' rgbd_and_mesh model), the eager loop against
+    its CUDA graph replay in turns: host ms of whole calls (each ending in a
+    synchronize), the capture's ms, the replay's device ms alone (CUDA
+    events), each call's trajectory equal to the eager loop's to the bit,
+    and 3 + 10*T flash calls (3 + 2*T split, 8*T tile) on both paths."""
+    import contextlib
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from nvblox_mindmap_torch.models import diffuser_actor as da
+    from nvblox_mindmap_torch.models.converter import (
+        apply_inference_settings,
+        convert_diffusion_scheduler,
+        convert_to_flash_attention,
+    )
+    from nvblox_mindmap_torch.ops import flash_attention as fa
+    from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
+
+    rng = np.random.default_rng(0)
+    batch = make_batch(1, "mesh")
+    batch.update(vertices=rng.uniform(-0.3, 0.6, size=(1, GOAL_KEYS, 3)).astype(np.float32),
+                 vertex_features=rng.normal(size=(1, GOAL_KEYS, FEATURE_DIM)).astype(np.float32),
+                 vertices_valid_mask=np.ones((1, GOAL_KEYS), dtype=bool))
+    torch.manual_seed(0)
+    model = da.DiffuserActor(model_config("mesh"), device="cuda")
+    bounds = np.asarray(WORKSPACE, dtype=np.float32)
+    prepared = da.prepare_inputs(batch, bounds, model.config, device="cuda")
+    sampler = convert_diffusion_scheduler(10)
+    T = sampler["num_inference_steps"]
+    init = torch.randn((1, 1, 1, 9), generator=torch.Generator(device="cuda").manual_seed(4),
+                       device="cuda")
+    rest = apply_inference_settings(convert_to_flash_attention())
+    if rest:
+        raise AssertionError(f"unexpected sampler settings {rest}")
+
+    def predict():
+        return da.sample_trajectory(model, prepared, bounds, init_noise=init, **sampler)
+
+    def eager_only():
+        return mock.patch.object(da, "_graph_applies", lambda *a: False)
+
+    with eager_only():
+        eager = predict()
+    counters = ("graph_captures", "graph_replays", "eager_calls")
+    before = [getattr(da.sample_trajectory, c) for c in counters]
+    out = {}
+    capture_ms = host_ms(lambda: out.update(traj=predict()[0]))
+    if not torch.equal(out["traj"], eager[0]):
+        raise AssertionError("sampler_graph: the capture's trajectory differs from eager")
+    expected = {"flash_attention_split": 3 + 2 * T, "flash_attention_tile": 8 * T}
+    times = {"eager": [], "graph": []}
+    for i in range(reps):
+        for path in (("graph", "eager") if i % 2 == 0 else ("eager", "graph")):
+            reset_flash_counts()
+            with eager_only() if path == "eager" else contextlib.nullcontext():
+                times[path].append(host_ms(lambda: out.update(traj=predict()[0])))
+            if (fa.flash_attention.launches != 3 + 10 * T
+                    or dict(fa.KERNEL_LAUNCHES) != expected):
+                raise AssertionError(f"sampler_graph: {path} made {fa.flash_attention.launches}"
+                                     f" flash calls {dict(fa.KERNEL_LAUNCHES)}, expected "
+                                     f"{3 + 10 * T} {expected}")
+            if not torch.equal(out["traj"], eager[0]):
+                raise AssertionError(f"sampler_graph: the {path} trajectory differs from eager")
+    paths = [getattr(da.sample_trajectory, c) - b for c, b in zip(counters, before)]
+    if paths != [1, reps, reps]:
+        raise AssertionError(f"sampler_graph: captures, replays, eager calls {paths}, "
+                             f"expected [1, {reps}, {reps}]")
+    (graph,) = [entry.graph for entry in da._GRAPHS[model].values()]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    set_default_attention_impl("eager")
+    summary = {path: dict(zip(("p50_ms", "q1_ms", "q3_ms"), quartiles(t)))
+               for path, t in times.items()}
+    phase("sampler_graph", B=1, context_keys=GOAL_KEYS, steps=T, reps=reps,
+          capture_ms=capture_ms, replay_device_ms=start.elapsed_time(end) / reps,
+          eager=summary["eager"], graph=summary["graph"],
+          speedup=summary["eager"]["p50_ms"] / summary["graph"]["p50_ms"],
+          launches_per_call=3 + 10 * T, launches_by_kernel=expected,
+          bit_equal_to_eager=True)
 
 
 # --------------------------------------------------------------------------
@@ -4217,21 +4317,27 @@ def add_launches(total, counts):
 
 class recording_shapes:
     """Within the block, every kernel launch's (B, H, L, S, D, masked) goes
-    into PATH_SHAPES (the kernels themselves run as before). On leaving, the
-    launches recorded must equal the launches the kernels counted, so a
-    recorder that the path went round fails the run."""
+    into PATH_SHAPES (the kernels themselves run as before). A launch into a
+    CUDA graph under capture runs nothing and counts nothing; each replay of
+    the graph counts the calls it replays (``fa.REPLAYED``), whose shapes
+    are added too. On leaving, the launches recorded and replayed must equal
+    the launches the kernels counted, so a recorder that the path went round
+    fails the run."""
 
     def __enter__(self):
+        import torch
+
         from nvblox_mindmap_torch.ops import flash_attention as fa
 
         self.fa, self.original = fa, fa.run_kernel
         self.recorded, self.before = 0, sum(fa.KERNEL_LAUNCHES.values())
+        self.replayed = dict(fa.REPLAYED)
 
         def recording(name, q, k, v, key_padding_mask=None):
             B, H, L, D = q.shape
             if L > 0:  # run_kernel launches nothing for no queries
                 PATH_SHAPES.add((B, H, L, k.shape[2], D, key_padding_mask is not None))
-                self.recorded += 1
+                self.recorded += not torch.cuda.is_current_stream_capturing()
             return self.original(name, q, k, v, key_padding_mask)
 
         fa.run_kernel = recording
@@ -4239,10 +4345,16 @@ class recording_shapes:
 
     def __exit__(self, exc_type, *exc):
         self.fa.run_kernel = self.original
+        replayed = {call: n - self.replayed.get(call, 0)
+                    for call, n in self.fa.REPLAYED.items()
+                    if n > self.replayed.get(call, 0)}
+        PATH_SHAPES.update((*call.q_shape[:3], call.keys, call.q_shape[3],
+                            call.valid_keys is not None) for call in replayed)
+        recorded = self.recorded + sum(replayed.values())
         launched = sum(self.fa.KERNEL_LAUNCHES.values()) - self.before
-        if exc_type is None and (launched == 0 or self.recorded != launched):
-            raise AssertionError(f"recording_shapes: {self.recorded} of {launched} "
-                                 "kernel launches recorded")
+        if exc_type is None and (launched == 0 or recorded != launched):
+            raise AssertionError(f"recording_shapes: {recorded} of {launched} "
+                                 "kernel launches recorded or replayed")
         return False
 
 
@@ -4712,6 +4824,7 @@ def main() -> int:
     measure_fusion()
     for kernel, n in counting_fps("closed_loop", run_closed_loop).items():
         launches[kernel] = launches.get(kernel, 0) + n
+    measure_sampler_graph()
     train_launches, resident_step_ms = counting_fps("train", run_training_phase, smi)
     for kernel, n in train_launches.items():
         launches[kernel] = launches.get(kernel, 0) + n

@@ -22,14 +22,20 @@ The model is built with the flax initialisers (``layers.init_as_flax_``), so
 a model trained from scratch starts from the JAX package's distribution.
 
 The JAX sampler is one ``lax.scan``; here it is a Python loop of eager
-steps. Its noise, and the training loss's noise and timesteps, come either
-from the caller (parity tests take them from the JAX key splits) or from a
+steps, which on the card under flash attention is captured once per goal
+shape and schedule as a CUDA graph and replayed (``sample_trajectory``). Its
+noise, and the training loss's noise and timesteps, come either from the
+caller (parity tests take them from the JAX key splits) or from a
 ``torch.Generator``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 import math
+import threading
+import weakref
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -51,6 +57,8 @@ from nvblox_mindmap_torch.models.normalization import (
     normalize_trajectory,
     unnormalize_trajectory,
 )
+from nvblox_mindmap_torch.ops import flash_attention as fa
+from nvblox_mindmap_torch.ops.attention import get_default_attention_impl
 from nvblox_mindmap_torch.ops.schedulers import DiffusionSchedule, make_schedule
 from nvblox_mindmap_torch.utils.timers import span
 
@@ -466,6 +474,16 @@ def sample_trajectory(
              mean cross-attention weights (B, L*G, N), None under flash).
     With ``normalized=True`` the trajectory stays in normalized space
     (B, L, G, 10: pos3+6D+openness logit).
+
+    The T denoiser steps run as one CUDA graph, captured at the first call
+    of a key (``_graph_key``: the shapes, the schedule, the TF32 flags, the
+    parameters' storage) and replayed at every later one, where
+    ``_graph_applies``: on the card, in eval mode, under flash attention,
+    with no dispatch mode and no capture under way. Elsewhere they run
+    eagerly. Encoding, the noise draws and the unnormalize tail run eagerly
+    on both paths, and the two give the same bits. ``graph_captures``,
+    ``graph_replays`` and ``eager_calls`` count the calls by path; a
+    replay counts the flash launches it replays (``fa.add_replayed``).
     """
     cfg = model.config
     device = model.device
@@ -477,8 +495,8 @@ def sample_trajectory(
 
     B = prepared["gripper_history"].shape[0]
     L, G = cfg.prediction_horizon, cfg.ngrippers
-    timesteps = pos_sched.timesteps(num_inference_steps, spacing=timestep_spacing)
-    T = timesteps.shape[0]
+    timesteps = tuple(pos_sched.timesteps(num_inference_steps, spacing=timestep_spacing).tolist())
+    T = len(timesteps)
     step_ratio = cfg.diffusion_timesteps // T
 
     if init_noise is None:
@@ -488,30 +506,19 @@ def sample_trajectory(
     elif stochastic and step_noise is None:
         raise ValueError("stochastic sampling with init_noise needs step_noise")
     trajectory = torch.as_tensor(init_noise, dtype=torch.float32, device=device)
-    if stochastic:
-        step_noise = torch.as_tensor(step_noise, dtype=torch.float32, device=device)
+    step_noise = (torch.as_tensor(step_noise, dtype=torch.float32, device=device)
+                  if stochastic else None)
 
-    weights_sum = None
-    for i, t in enumerate(timesteps.tolist()):
-        with span("sampler/step"):
-            t_batch = torch.full((B,), float(t), device=device)
-            pred, head_yaw, weights = model.denoise(trajectory, t_batch, fixed)
-            prev_t = t - step_ratio
-            noise = step_noise[i] if stochastic else None
-            pos = pos_sched.step(
-                pred[..., :3], t, trajectory[..., :3],
-                noise=None if noise is None else noise[..., :3], prev_t=prev_t,
-            )
-            rot = rot_sched.step(
-                pred[..., 3:9], t, trajectory[..., 3:9],
-                noise=None if noise is None else noise[..., 3:9], prev_t=prev_t,
-            )
-            trajectory = torch.cat([pos, rot], dim=-1)
-            if weights is not None:
-                weights_sum = weights if weights_sum is None else weights_sum + weights
-    # Openness and head yaw come from the final denoiser call; attention
-    # weights are averaged over all steps.
-    openness = pred[..., 9:]
+    loop = functools.partial(_denoise_loop, model, timesteps=timesteps, step_ratio=step_ratio,
+                             schedules=(pos_sched, rot_sched))
+    if _graph_applies(model, trajectory):
+        key = _graph_key(model, fixed, trajectory, step_noise, timesteps, step_ratio, pos_sched,
+                         get_default_attention_impl())
+        trajectory, openness, head_yaw, weights_sum = _graphed_loop(
+            model, key, loop, fixed, trajectory, step_noise)
+    else:
+        sample_trajectory.eager_calls += 1
+        trajectory, openness, head_yaw, weights_sum = loop(fixed, trajectory, step_noise)
     mean_weights = None if weights_sum is None else weights_sum / T
 
     trajectory = torch.cat([trajectory, openness], dim=-1)
@@ -530,3 +537,167 @@ def sample_trajectory(
     if cfg.predict_head_yaw and head_yaw is not None:
         head_yaw = torch.clamp(head_yaw, -math.pi, math.pi - 1e-6)
     return trajectory, head_yaw, mean_weights
+
+
+sample_trajectory.graph_captures = 0
+sample_trajectory.graph_replays = 0
+sample_trajectory.eager_calls = 0
+
+
+def _denoise_loop(model: DiffuserActor, fixed: Dict[str, Any], trajectory: torch.Tensor,
+                  step_noise: Optional[torch.Tensor], timesteps: Tuple[int, ...],
+                  step_ratio: int, schedules: Tuple[DiffusionSchedule, DiffusionSchedule]):
+    """``sample_trajectory``'s T denoiser steps from ``trajectory``, with
+    ``step_noise`` read when not None. Returns (the final trajectory, the
+    last denoiser call's openness logit and head yaw, the attention weights
+    summed over the steps or None)."""
+    pos_sched, rot_sched = schedules
+    B = trajectory.shape[0]
+    weights_sum = None
+    for i, t in enumerate(timesteps):
+        with span("sampler/step"):
+            t_batch = torch.full((B,), float(t), device=trajectory.device)
+            pred, head_yaw, weights = model.denoise(trajectory, t_batch, fixed)
+            prev_t = t - step_ratio
+            noise = None if step_noise is None else step_noise[i]
+            pos = pos_sched.step(
+                pred[..., :3], t, trajectory[..., :3],
+                noise=None if noise is None else noise[..., :3], prev_t=prev_t,
+            )
+            rot = rot_sched.step(
+                pred[..., 3:9], t, trajectory[..., 3:9],
+                noise=None if noise is None else noise[..., 3:9], prev_t=prev_t,
+            )
+            trajectory = torch.cat([pos, rot], dim=-1)
+            if weights is not None:
+                weights_sum = weights if weights_sum is None else weights_sum + weights
+    return trajectory, pred[..., 9:], head_yaw, weights_sum
+
+
+# The denoiser loop on the card is some 450 small launches a step, which the
+# host dispatches more slowly than the card runs them. So it is captured as
+# one CUDA graph per key and replayed. The graphs of a model are kept beside
+# it, at most GRAPH_CACHE_SIZE, the least recently used dropped first: kept
+# out of the model's __dict__, so that a deepcopy or pickle of the model
+# (serving's replicas) copies no graph.
+GRAPH_CACHE_SIZE = 4
+_GRAPHS: "weakref.WeakKeyDictionary[DiffuserActor, collections.OrderedDict]" = (
+    weakref.WeakKeyDictionary())
+# One capture at a time: a capture begins with a device synchronize and
+# frees the allocator's cache, which another thread's capture under way
+# (serving's replicas, one thread each) would not survive.
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _graph_applies(model: DiffuserActor, trajectory: torch.Tensor) -> bool:
+    """Whether the denoiser loop may run as a graph replay: inputs on CUDA,
+    no autograd, the model in eval mode (no dropout), the flash
+    attention impl (no attention weights), no dispatch mode that must see
+    every op (``FlopCounterMode``) and no capture already under way."""
+    return (trajectory.is_cuda and not torch.is_grad_enabled() and not model.training
+            and get_default_attention_impl() == "flash"
+            and torch._C._len_torch_dispatch_stack() == 0
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def _tensors(fixed: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The tensors among the encoder's outputs: what a captured loop reads."""
+    return {name: x for name, x in fixed.items() if isinstance(x, torch.Tensor)}
+
+
+def _graph_key(model: DiffuserActor, fixed: Dict[str, Any], trajectory: torch.Tensor,
+               step_noise: Optional[torch.Tensor], timesteps: Tuple[int, ...],
+               step_ratio: int, schedule: DiffusionSchedule, impl: str) -> tuple:
+    """What a captured loop bakes in: the layout of every input it reads,
+    the steps and their rule, the attention impl, the float32 matmul and
+    cuDNN TF32 flags, and where the denoiser's parameters live (a model
+    moved or given new storage captures again; weights loaded in place are
+    read by the replay)."""
+    def layout(x):
+        return None if x is None else (tuple(x.shape), x.stride(), x.dtype, x.device)
+
+    return (
+        trajectory.shape[0],
+        tuple((name, layout(x)) for name, x in sorted(_tensors(fixed).items())),
+        layout(trajectory),
+        layout(step_noise),
+        timesteps,
+        step_ratio,
+        schedule.kind,
+        schedule.clip_sample,
+        schedule.clip_range,
+        impl,
+        torch.get_float32_matmul_precision(),
+        torch.backends.cuda.matmul.allow_tf32,
+        torch.backends.cudnn.allow_tf32,
+        torch.is_inference_mode_enabled(),
+        tuple(t.data_ptr() for t in (*model.head.parameters(), *model.head.buffers())),
+    )
+
+
+@dataclasses.dataclass
+class _CapturedLoop:
+    """A captured loop: its graph, the static inputs it reads (each replay
+    copies the call's into them), the outputs it writes, and the flash
+    kernel launches of one replay."""
+
+    graph: Any
+    inputs: Dict[str, torch.Tensor]
+    init: torch.Tensor
+    noise: Optional[torch.Tensor]
+    outputs: Tuple[Optional[torch.Tensor], ...]
+    launches: Tuple[fa.KernelCall, ...]
+
+
+def _capture(loop, fixed, trajectory, step_noise):
+    """One eager warm-up of ``loop`` on a side stream, which lists the flash
+    launches that each replay makes, then its capture on that stream (whose
+    launches run and count nothing). Returns the captured loop and the
+    warm-up's outputs (the replay's equal them bit for bit)."""
+    device = trajectory.device
+    inputs = {name: x.clone() for name, x in _tensors(fixed).items()}
+    init = trajectory.clone()
+    noise = None if step_noise is None else step_noise.clone()
+    current = torch.cuda.current_stream(device)
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        with fa.listing_launches() as launches:
+            warm = loop(inputs, init, noise)
+    graph = torch.cuda.CUDAGraph()
+    with _CAPTURE_LOCK, torch.cuda.graph(graph, stream=stream,
+                                         capture_error_mode="thread_local"):
+        outputs = loop(inputs, init, noise)
+    current.wait_stream(stream)
+    for t in warm:
+        if t is not None:
+            t.record_stream(current)
+    return _CapturedLoop(graph, inputs, init, noise, outputs, tuple(launches)), warm
+
+
+def _graphed_loop(model, key, loop, fixed, trajectory, step_noise):
+    """``loop(fixed, trajectory, step_noise)`` through the model's captured
+    graph for ``key``: the first call of a key captures it, every later call
+    copies its inputs into the graph's and replays it. The outputs are the
+    caller's own (clones), so no later replay overwrites them."""
+    graphs = _GRAPHS.setdefault(model, collections.OrderedDict())
+    entry = graphs.get(key)
+    if entry is None:
+        entry, outputs = _capture(loop, fixed, trajectory, step_noise)
+        graphs[key] = entry
+        if len(graphs) > GRAPH_CACHE_SIZE:
+            graphs.popitem(last=False)
+        sample_trajectory.graph_captures += 1
+        return outputs
+    graphs.move_to_end(key)
+    with span("sampler/graph"):
+        for name, buffer in entry.inputs.items():
+            buffer.copy_(fixed[name])
+        entry.init.copy_(trajectory)
+        if entry.noise is not None:
+            entry.noise.copy_(step_noise)
+        entry.graph.replay()
+        outputs = tuple(None if t is None else t.clone() for t in entry.outputs)
+    fa.add_replayed(entry.launches)
+    sample_trajectory.graph_replays += 1
+    return outputs

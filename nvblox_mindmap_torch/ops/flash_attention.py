@@ -31,7 +31,11 @@ be unit-stride. The output has q's memory layout (``torch.empty_like``).
 ``flash_attention_reference``, the same function in plain torch; a CUDA
 tensor launches one kernel or raises. There is no fallback between the two.
 ``flash_attention.launches`` counts calls that launched a kernel;
-``KERNEL_LAUNCHES`` counts the launches of each kernel.
+``KERNEL_LAUNCHES`` counts the launches of each kernel. A launch into a CUDA
+graph under capture runs nothing and counts nothing: each replay of the graph
+counts its launches (``add_replayed``), which ``listing_launches`` listed as
+``KernelCall``s from an eager run of the same work, and ``REPLAYED`` counts
+them by call.
 
 The kernels are forward-only (the JAX package has no flash backward either),
 and an output written through a pointer has no autograd node. So
@@ -42,8 +46,11 @@ kernel without a word. Inference runs them under ``torch.no_grad``
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
-from typing import Callable, Dict, Optional
+import threading
+from typing import Callable, Dict, Iterable, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -54,6 +61,52 @@ DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 SPLIT_MAX_L = 8
 KERNELS = ("flash_attention_split", "flash_attention_tile")
 KERNEL_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+
+class KernelCall(NamedTuple):
+    """One kernel launch as a graph replays it: the kernel, q's (B, H, L, D),
+    the keys S, q's element size as given, and the mask's valid keys summed
+    over the batch (None without a mask)."""
+
+    name: str
+    q_shape: Tuple[int, int, int, int]
+    keys: int
+    element_size: int
+    valid_keys: Optional[int]
+
+
+# The launches that CUDA graph replays made, by call.
+REPLAYED: "collections.Counter[KernelCall]" = collections.Counter()
+# This thread's list while ``listing_launches`` runs: (name, q shape, S,
+# element size, mask) of each launch.
+_LISTING = threading.local()
+
+
+@contextlib.contextmanager
+def listing_launches() -> Iterator[List[KernelCall]]:
+    """Yields a list that, when the block ends, holds the kernel launches
+    this thread made inside it, in order (each counted as usual). The masks'
+    valid keys are read then, which waits for the current stream."""
+    outer = getattr(_LISTING, "calls", None)
+    _LISTING.calls = raw = []
+    calls: List[KernelCall] = []
+    try:
+        yield calls
+    finally:
+        _LISTING.calls = outer
+    masks = [mask for *_, mask in raw if mask is not None]
+    valid = iter(torch.stack([m.sum() for m in masks]).tolist() if masks else ())
+    calls.extend(KernelCall(name, shape, keys, size, None if mask is None else next(valid))
+                 for name, shape, keys, size, mask in raw)
+
+
+def add_replayed(calls: Iterable[KernelCall]) -> None:
+    """Counts one replay of a CUDA graph whose capture made ``calls``: each
+    a kernel launch and a ``flash_attention`` call."""
+    for call in calls:
+        KERNEL_LAUNCHES[call.name] += 1
+        REPLAYED[call] += 1
+        flash_attention.launches += 1
 
 
 def flash_attention_reference(
@@ -179,7 +232,7 @@ def run_kernel(
         if not key_padding_mask.is_contiguous():
             raise ValueError("key_padding_mask must be contiguous")
         mask_ptr = key_padding_mask.data_ptr()
-    dtype = q.dtype
+    dtype, q_size = q.dtype, q.element_size()
     q, k, v = q.float(), k.float(), v.float()
     out = torch.empty_like(q)
     if L == 0:
@@ -195,7 +248,11 @@ def run_kernel(
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    KERNEL_LAUNCHES[name] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        KERNEL_LAUNCHES[name] += 1
+        listing = getattr(_LISTING, "calls", None)
+        if listing is not None:
+            listing.append((name, (B, H, L, D), S, q_size, key_padding_mask))
     return out.to(dtype)
 
 
@@ -215,7 +272,7 @@ def flash_attention(
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, key_padding_mask)
     out = run_kernel(kernel_for(q.shape[2]), q, k, v, key_padding_mask)
-    if q.shape[2] > 0:
+    if q.shape[2] > 0 and not torch.cuda.is_current_stream_capturing():
         flash_attention.launches += 1
     return out
 

@@ -21,6 +21,9 @@ TF32 on both, other summation orders through forward and backward). The FPS
 kernel: its picks and running distances equal to the bit the eager loop's on
 the card.
 """
+import collections
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -602,3 +605,252 @@ def test_fps_kernel_raises_instead_of_falling_back(gen):
     with pytest.raises(ValueError, match="one warp"):  # ATen sums 8 rows of 120 over 64 lanes
         fps_ops.farthest_point_sampling(points[:1, :8].contiguous(), 2)
     assert fps_ops.farthest_point_sampling.launches == before
+
+
+# ------------------------------------------------- the sampler's CUDA graph
+
+# The denoiser loop captured as a CUDA graph and replayed, against the same
+# loop run eagerly (``_graph_applies`` patched to False): the same bits, the
+# same flash launches per call. Shapes: radio_goal's (B = 1, 3072 keys, FPS
+# to 614, 768-d vertex features, DDIM-10), stochastic DDPM-100, the GR1
+# humanoid's two hands and head yaw, a B = 8 batch.
+SAMPLER_CASES = {
+    "radio_goal": dict(config={}, B=1, sampler=dict(num_inference_steps=10,
+                                                    scheduler_kind="ddim", stochastic=False)),
+    "ddpm100_stochastic": dict(config={}, B=1, sampler=dict(num_inference_steps=None,
+                                                            scheduler_kind="ddpm",
+                                                            stochastic=True)),
+    "gr1_two_hands_head_yaw": dict(config=dict(ngrippers=2, predict_head_yaw=True), B=1,
+                                   sampler=dict(num_inference_steps=10, scheduler_kind="ddim",
+                                                stochastic=False)),
+    "batch_8": dict(config={}, B=8, sampler=dict(num_inference_steps=10,
+                                                 scheduler_kind="ddim", stochastic=False)),
+}
+GOAL_KEYS = 3072
+
+
+def _sampler_model(**config):
+    from nvblox_mindmap_torch.models.diffuser_actor import DiffuserActor, DiffuserActorConfig
+
+    torch.manual_seed(0)
+    return DiffuserActor(DiffuserActorConfig(**config))
+
+
+def _sampler_inputs(model, gen, B, sampler):
+    """A prepared batch over ``GOAL_KEYS`` mesh vertices (a tenth masked
+    out) and the sampler's noise."""
+    from nvblox_mindmap_torch.models.diffuser_actor import prepare_inputs, sampler_noise
+
+    cfg = model.config
+    G = cfg.ngrippers
+    quat = torch.randn((B, cfg.nhist, G, 4), generator=gen, device="cuda")
+    batch = {
+        "gripper_history": torch.cat(
+            [torch.rand((B, cfg.nhist, G, 3), generator=gen, device="cuda"),
+             quat / quat.norm(dim=-1, keepdim=True),
+             torch.ones((B, cfg.nhist, G, 1), device="cuda")], -1),
+        "vertices": torch.rand((B, GOAL_KEYS, 3), generator=gen, device="cuda"),
+        "vertex_features": torch.randn((B, GOAL_KEYS, cfg.vertex_feature_dim),
+                                       generator=gen, device="cuda"),
+        "vertices_valid_mask": torch.rand((B, GOAL_KEYS), generator=gen, device="cuda") > 0.1,
+    }
+    bounds = np.asarray([[0, 0, 0], [1, 1, 1]], np.float32)
+    steps = cfg.schedules(kind=sampler["scheduler_kind"])[0].timesteps(
+        sampler["num_inference_steps"]).shape[0]
+    init, step = sampler_noise(cfg, B, steps, sampler["stochastic"], gen, "cuda")
+    return prepare_inputs(batch, bounds, cfg), bounds, dict(init_noise=init, step_noise=step)
+
+
+def _counted_call(model, inputs, sampler, eager=False):
+    """One ``sample_trajectory`` call: its outputs, and what it added to the
+    flash counters and to the sampler's path counters."""
+    import contextlib
+    from unittest import mock
+
+    from nvblox_mindmap_torch.models import diffuser_actor as da
+
+    prepared, bounds, noise = inputs
+    counters = ("graph_captures", "graph_replays", "eager_calls")
+    before = (fa.flash_attention.launches, dict(fa.KERNEL_LAUNCHES),
+              [getattr(da.sample_trajectory, c) for c in counters])
+    eager_only = mock.patch.object(da, "_graph_applies", lambda *a: False)
+    with eager_only if eager else contextlib.nullcontext():
+        out = da.sample_trajectory(model, prepared, bounds, **sampler, **noise)
+    torch.cuda.synchronize()
+    launches = {k: n - before[1][k] for k, n in fa.KERNEL_LAUNCHES.items()}
+    paths = {c: getattr(da.sample_trajectory, c) - b for c, b in zip(counters, before[2])}
+    return out, fa.flash_attention.launches - before[0], launches, paths
+
+
+def _assert_same_bits(a, b):
+    assert a[2] is None and b[2] is None
+    assert torch.equal(a[0], b[0])
+    assert (a[1] is None) == (b[1] is None)
+    assert a[1] is None or torch.equal(a[1], b[1])
+
+
+@pytest.fixture
+def flash_impl():
+    from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
+
+    set_default_attention_impl("flash")
+    yield
+    set_default_attention_impl("eager")
+
+
+@pytest.mark.parametrize("case", sorted(SAMPLER_CASES))
+def test_sampler_graph_equals_eager_loop(gen, flash_impl, case):
+    """Capture, then replays on the same and on new inputs: each call equal
+    to the eager loop's to the bit, with the eager loop's flash launches;
+    the returned tensors are the caller's (a later replay leaves them)."""
+    spec = SAMPLER_CASES[case]
+    model = _sampler_model(**spec["config"])
+    first = _sampler_inputs(model, gen, spec["B"], spec["sampler"])
+    second = _sampler_inputs(model, gen, spec["B"], spec["sampler"])
+    T = len(model.config.schedules()[0].timesteps(spec["sampler"]["num_inference_steps"]))
+    calls = 3 + 10 * T
+    kernels = {SPLIT: 3 + 2 * T, TILE: 8 * T}
+
+    eager_a = _counted_call(model, first, spec["sampler"], eager=True)
+    eager_b = _counted_call(model, second, spec["sampler"], eager=True)
+    captured = _counted_call(model, first, spec["sampler"])
+    replay_a = _counted_call(model, first, spec["sampler"])
+    replay_b = _counted_call(model, second, spec["sampler"])
+    for call in (eager_a, eager_b, captured, replay_a, replay_b):
+        assert call[1] == calls and call[2] == kernels
+    assert eager_a[3] == eager_b[3] == dict(graph_captures=0, graph_replays=0, eager_calls=1)
+    assert captured[3] == dict(graph_captures=1, graph_replays=0, eager_calls=0)
+    assert replay_a[3] == replay_b[3] == dict(graph_captures=0, graph_replays=1, eager_calls=0)
+    _assert_same_bits(captured[0], eager_a[0])
+    _assert_same_bits(replay_a[0], eager_a[0])
+    _assert_same_bits(replay_b[0], eager_b[0])
+    assert not torch.equal(eager_a[0][0], eager_b[0][0])
+    if model.config.predict_head_yaw:
+        assert replay_b[0][1].shape == (spec["B"], 1, 1)
+
+
+def test_sampler_graph_captures_again_on_new_storage_and_tf32(gen, flash_impl):
+    """A key names the parameters' storage and the TF32 flags: new storage,
+    or TF32 switched on, captures again, and the replay still equals the
+    eager loop."""
+    spec = SAMPLER_CASES["radio_goal"]
+    model = _sampler_model()
+    inputs = _sampler_inputs(model, gen, 1, spec["sampler"])
+    _counted_call(model, inputs, spec["sampler"])
+    assert _counted_call(model, inputs, spec["sampler"])[3]["graph_replays"] == 1
+    for p in model.head.parameters():
+        p.data = p.data.clone()
+    assert _counted_call(model, inputs, spec["sampler"])[3]["graph_captures"] == 1
+    replay = _counted_call(model, inputs, spec["sampler"])
+    assert replay[3]["graph_replays"] == 1
+    _assert_same_bits(replay[0], _counted_call(model, inputs, spec["sampler"], eager=True)[0])
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = not saved
+        assert _counted_call(model, inputs, spec["sampler"])[3]["graph_captures"] == 1
+        replay = _counted_call(model, inputs, spec["sampler"])
+        assert replay[3]["graph_replays"] == 1
+        _assert_same_bits(replay[0],
+                          _counted_call(model, inputs, spec["sampler"], eager=True)[0])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert _counted_call(model, inputs, spec["sampler"])[3]["graph_replays"] == 1
+
+
+def test_sampler_graph_leaves_flop_counter_the_eager_loop(gen, flash_impl):
+    """Under ``FlopCounterMode`` the loop runs eagerly, with a graph of the
+    same key cached or not: the same count either way."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    spec = SAMPLER_CASES["radio_goal"]
+    model = _sampler_model()
+    inputs = _sampler_inputs(model, gen, 1, spec["sampler"])
+    counts = []
+    for _ in range(2):
+        with FlopCounterMode(display=False) as counter:
+            call = _counted_call(model, inputs, spec["sampler"])
+        assert call[3] == dict(graph_captures=0, graph_replays=0, eager_calls=1)
+        counts.append(counter.get_total_flops())
+        _counted_call(model, inputs, spec["sampler"])  # capture, then replay
+    assert counts[0] == counts[1] > 0
+
+
+def test_sampler_graph_replays_the_calls_it_listed(gen, flash_impl):
+    """A replay counts, in ``fa.REPLAYED``, the very calls that the eager
+    loop launches: each kernel, q's shape, the keys, q's element size and
+    the mask's valid keys (a tenth of the vertices masked out)."""
+    from unittest import mock
+
+    spec = SAMPLER_CASES["radio_goal"]
+    model = _sampler_model()
+    inputs = _sampler_inputs(model, gen, 1, spec["sampler"])
+    eager = []
+    run_kernel = fa.run_kernel
+
+    def listing(name, q, k, v, key_padding_mask=None):
+        eager.append(fa.KernelCall(name, tuple(q.shape), k.shape[2], q.element_size(),
+                                   None if key_padding_mask is None
+                                   else int(key_padding_mask.sum())))
+        return run_kernel(name, q, k, v, key_padding_mask)
+
+    with mock.patch.object(fa, "run_kernel", listing):
+        _counted_call(model, inputs, spec["sampler"], eager=True)
+    _counted_call(model, inputs, spec["sampler"])  # capture
+    before = fa.REPLAYED.copy()
+    _counted_call(model, inputs, spec["sampler"])
+    replayed = fa.REPLAYED - before
+    denoiser = collections.Counter(eager[3:])  # the encoder's 3 calls run eagerly
+    assert replayed == denoiser
+    assert any(call.valid_keys is not None and call.valid_keys < call.keys
+               for call in replayed)
+
+
+def test_sampler_graph_counts_per_thread_in_sharded_serving(gen, flash_impl):
+    """``make_sharded_infer_fn`` over two replicas on one card runs its
+    shards in two threads, whose warm-ups and replays run at once (their
+    captures one after the other): each call counts both shards' launches
+    and no more, and equals the eager loop's call to the bit."""
+    from unittest import mock
+
+    from nvblox_mindmap_torch.models import diffuser_actor as da
+    from nvblox_mindmap_torch.models.diffuser_actor import sampler_noise
+    from nvblox_mindmap_torch.parallel.serving import make_sharded_infer_fn
+
+    model = _sampler_model()
+    cfg, B = model.config, 2
+    quat = torch.randn((B, cfg.nhist, 1, 4), generator=gen, device="cuda")
+    batch = {
+        "gripper_history": torch.cat(
+            [torch.rand((B, cfg.nhist, 1, 3), generator=gen, device="cuda"),
+             quat / quat.norm(dim=-1, keepdim=True),
+             torch.ones((B, cfg.nhist, 1, 1), device="cuda")], -1),
+        "vertices": torch.rand((B, GOAL_KEYS, 3), generator=gen, device="cuda"),
+        "vertex_features": torch.randn((B, GOAL_KEYS, cfg.vertex_feature_dim),
+                                       generator=gen, device="cuda"),
+    }
+    bounds = np.asarray([[0, 0, 0], [1, 1, 1]], np.float32)
+    infer = make_sharded_infer_fn(model, bounds, ["cuda:0", "cuda:0"],
+                                  num_inference_steps=10, scheduler_kind="ddim")
+    params = model.state_dict()
+    init, _ = sampler_noise(cfg, B, 10, False, gen, "cuda")
+
+    def call(eager=False):
+        before = (fa.flash_attention.launches, dict(fa.KERNEL_LAUNCHES),
+                  da.sample_trajectory.graph_captures, da.sample_trajectory.graph_replays)
+        patch = mock.patch.object(da, "_graph_applies", lambda *a: False)
+        with patch if eager else contextlib.nullcontext():
+            out = infer(params, batch, init_noise=init)
+        torch.cuda.synchronize()
+        launches = {k: n - before[1][k] for k, n in fa.KERNEL_LAUNCHES.items()}
+        return (out, fa.flash_attention.launches - before[0], launches,
+                da.sample_trajectory.graph_captures - before[2],
+                da.sample_trajectory.graph_replays - before[3])
+
+    eager = call(eager=True)
+    expected = (2 * (3 + 10 * 10), {SPLIT: 2 * (3 + 2 * 10), TILE: 2 * 8 * 10})
+    for captures, replays in ((2, 0), (0, 2), (0, 2)):
+        out, calls, launches, got_captures, got_replays = call()
+        assert (calls, launches) == expected
+        assert (got_captures, got_replays) == (captures, replays)
+        assert torch.equal(out[0], eager[0][0])
+    assert (eager[1], eager[2]) == expected

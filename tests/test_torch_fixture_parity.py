@@ -25,6 +25,7 @@ from nvblox_mindmap_torch.mapping.constants import get_workspace_bounds
 from nvblox_mindmap_torch.models import diffuser_actor as tda
 from nvblox_mindmap_torch.models.converter import convert_diffusion_scheduler
 from nvblox_mindmap_torch.models.weights import load_flax_params
+from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
 from tests.test_torch_model_parity import (  # noqa: F401 (one_torch_thread: autouse fixture)
     TRAJ_ATOL,
     assert_outputs_close,
@@ -52,6 +53,16 @@ FIXTURES = {
                                  stochastic=True)),
 }
 N_VERTICES = 128
+
+
+@pytest.fixture(autouse=True)
+def eager_default_impl():
+    """Both samplers run their default attention, eager, whatever an app or
+    test run earlier in the same process left as the port's default (the
+    apps switch it to flash)."""
+    set_default_attention_impl("eager")
+    yield
+    set_default_attention_impl("eager")
 
 
 def load_params(path):
