@@ -30,6 +30,19 @@ import torch
 
 from nvblox_mindmap_torch.ops import flash_attention as fa
 from nvblox_mindmap_torch.ops import fps as fps_ops
+from cuda_helpers import (
+    BOUNDS,
+    DENOISE_ATOL,
+    TRAJ_ATOL,
+    VERTICES,
+    assert_trajectory,
+    attention,
+    batch_of,
+    flagship,
+    flash,
+    launches,
+    per_goal,
+)
 
 pytestmark = pytest.mark.cuda
 ATOL = 2e-5
@@ -106,14 +119,10 @@ def _inputs(gen, B, H, L, S, D, masked):
 )
 def test_kernel_matches_plain_version(gen, B, H, L, S, D, masked):
     q, k, v, mask = _inputs(gen, B, H, L, S, D, masked)
-    name = fa.kernel_for(L)
-    before = fa.flash_attention.launches
-    before_kernel = fa.KERNEL_LAUNCHES[name]
-    out = fa.flash_attention(q, k, v, mask)
+    with launches() as counts:
+        out = fa.flash_attention(q, k, v, mask)
     ref = fa.flash_attention_reference(q, k, v, mask)
-    torch.cuda.synchronize()
-    assert fa.flash_attention.launches == before + 1
-    assert fa.KERNEL_LAUNCHES[name] == before_kernel + 1
+    assert counts["calls"] == counts[fa.kernel_for(L)] == 1
     torch.testing.assert_close(out, ref, rtol=0, atol=ATOL)
     if masked:
         assert bool((out[0] == 0).all())
@@ -210,18 +219,20 @@ def test_wrapper_raises_instead_of_falling_back(gen):
         fa.run_kernel(SPLIT, w, w, w)
 
 
-def test_model_flash_path_matches_eager_on_cuda(gen):
-    from nvblox_mindmap_torch.models.converter import (
-        apply_inference_settings,
-        convert_to_flash_attention,
-    )
-    from nvblox_mindmap_torch.models.diffuser_actor import (
-        DiffuserActor,
-        DiffuserActorConfig,
-        prepare_inputs,
-        sample_trajectory,
-    )
-    from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
+# Flash against eager attention through whole predictions: the full-width
+# mesh and rgbd_and_mesh models (tests/cuda_helpers.flagship) under DDPM-100
+# and DDIM-10 at B = 1 and 8, and the committed humanoid fixtures' width (72,
+# two grippers, head yaw) at B = 2.
+FLASH_PATH_CASES = [("humanoid_w72", "ddim10", 2)] + [
+    (data_type, sampler, B) for data_type in ("mesh", "rgbd_and_mesh")
+    for sampler, B in (("ddpm100", 1), ("ddim10", 1), ("ddim10", 8))]
+FLASH_PATH_SAMPLERS = {
+    "ddpm100": dict(num_inference_steps=100, scheduler_kind="ddpm", stochastic=True),
+    "ddim10": dict(num_inference_steps=10, scheduler_kind="ddim", stochastic=False)}
+
+
+def _humanoid_w72(B):
+    from nvblox_mindmap_torch.models.diffuser_actor import DiffuserActor, DiffuserActorConfig
 
     cfg = DiffuserActorConfig(embedding_dim=72, num_attn_heads=8, vertex_feature_dim=3,
                               diffusion_timesteps=100, fps_subsampling_factor=4,
@@ -229,36 +240,63 @@ def test_model_flash_path_matches_eager_on_cuda(gen):
     torch.manual_seed(0)
     model = DiffuserActor(cfg)
     rng = np.random.default_rng(0)
-    quat = rng.normal(size=(2, 3, 2, 4))
+    quat = rng.normal(size=(B, 3, 2, 4))
     quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
     batch = {
         "gripper_history": np.concatenate(
-            [rng.uniform(0, 1, (2, 3, 2, 3)), quat, np.ones((2, 3, 2, 1))], -1
+            [rng.uniform(0, 1, (B, 3, 2, 3)), quat, np.ones((B, 3, 2, 1))], -1
         ).astype(np.float32),
-        "vertices": rng.uniform(0, 1, (2, 512, 3)).astype(np.float32),
-        "vertex_features": rng.uniform(0, 1, (2, 512, 3)).astype(np.float32),
+        "vertices": rng.uniform(0, 1, (B, 512, 3)).astype(np.float32),
+        "vertex_features": rng.uniform(0, 1, (B, 512, 3)).astype(np.float32),
     }
-    bounds = np.asarray([[0, 0, 0], [1, 1, 1]], np.float32)
+    return model, batch, np.asarray([[0, 0, 0], [1, 1, 1]], np.float32)
+
+
+@pytest.mark.parametrize("data_type,sampler,B", FLASH_PATH_CASES)
+def test_model_flash_path_matches_eager_on_cuda(gen, data_type, sampler, B):
+    """One denoiser pass and whole predictions, flash against eager: the
+    context and FPS token counts, depth holes masking their image tokens, 3 +
+    2T split and 8T tile launches, attention weights only on the eager path,
+    valid poses."""
+    from nvblox_mindmap_torch.models.diffuser_actor import prepare_inputs, sample_trajectory
+
+    sampler = FLASH_PATH_SAMPLERS[sampler]
+    T = sampler["num_inference_steps"]
+    if data_type == "humanoid_w72":
+        (model, batch, bounds), context, holes = _humanoid_w72(B), 512, None
+    else:
+        model, (batch, holes), bounds = flagship(data_type), batch_of(B, data_type), BOUNDS
+        cameras = data_type == "rgbd_and_mesh"
+        context, holes = VERTICES + 32 * cameras, holes if cameras else None
+    cfg = model.config
     prepared = prepare_inputs(batch, bounds, cfg)
-    init = torch.randn((2, 1, 2, 9), device="cuda", generator=gen)
-    kw = dict(num_inference_steps=10, scheduler_kind="ddim", stochastic=False,
-              init_noise=init)
-    try:
-        set_default_attention_impl("eager")
-        eager = sample_trajectory(model, prepared, bounds, **kw)
-        apply_inference_settings(convert_to_flash_attention())
-        before = fa.flash_attention.launches
-        before_split = fa.KERNEL_LAUNCHES[SPLIT]
-        flash = sample_trajectory(model, prepared, bounds, **kw)
-        torch.cuda.synchronize()
-        assert fa.flash_attention.launches - before == 3 + 10 * 10
-        # Encoder cross (3) and denoiser cross (2 per step) have L <= 8.
-        assert fa.KERNEL_LAUNCHES[SPLIT] - before_split == 3 + 2 * 10
-    finally:
-        set_default_attention_impl("eager")
-    assert flash[2] is None and eager[2] is not None
-    torch.testing.assert_close(flash[0], eager[0], rtol=0, atol=5e-3)
-    torch.testing.assert_close(flash[1], eager[1], rtol=0, atol=5e-3)
+    G = cfg.ngrippers
+    noise = dict(init_noise=torch.randn((B, 1, G, 9), device="cuda", generator=gen),
+                 step_noise=torch.randn((T, B, 1, G, 9), device="cuda", generator=gen))
+    with torch.no_grad():
+        fixed = model.encode_prepared(prepared, impl="eager")
+        assert (fixed["context_feats"].shape[1], fixed["fps_feats"].shape[1]) == (
+            context, context // cfg.fps_subsampling_factor)
+        if holes is not None:
+            image_mask = fixed["context_mask"][:, :32].cpu().numpy()
+            assert np.array_equal(image_mask, ~holes.reshape(B, 32)) and holes.any()
+        t_first = torch.full((B,), 99.0, device="cuda")
+        eps = {}
+        for impl in ("eager", "flash"):
+            with attention(impl):
+                eps[impl] = model.denoise(noise["init_noise"], t_first, fixed)[0]
+    torch.testing.assert_close(eps["flash"], eps["eager"], rtol=0, atol=DENOISE_ATOL)
+    with attention("eager"):
+        eager = sample_trajectory(model, prepared, bounds, **noise, **sampler)
+    with attention("flash"), launches() as counts:
+        traj, head_yaw, weights = sample_trajectory(model, prepared, bounds, **noise, **sampler)
+    assert counts["calls"] == 3 + 10 * T and flash(counts) == per_goal(T)
+    assert eager[2] is not None and weights is None
+    assert_trajectory(traj, B, G)
+    torch.testing.assert_close(traj, eager[0], rtol=0, atol=TRAJ_ATOL)
+    assert (head_yaw is None) == (eager[1] is None) == (not cfg.predict_head_yaw)
+    if head_yaw is not None:
+        torch.testing.assert_close(head_yaw, eager[1], rtol=0, atol=TRAJ_ATOL)
 
 
 def _assert_bf16_close(out, ref):
@@ -390,12 +428,12 @@ def test_flash_refuses_under_grad_on_cuda(gen):
     nothing."""
     q = torch.randn(2, 8, 3, 15, device="cuda", generator=gen).requires_grad_()
     k = torch.randn(2, 8, 64, 15, device="cuda", generator=gen)
-    before = dict(fa.KERNEL_LAUNCHES)
-    for call in (lambda: fa.flash_attention(q, k, k), lambda: fa.run_kernel(SPLIT, q, k, k),
-                 lambda: fa.run_kernel(TILE, q, k, k)):
-        with pytest.raises(RuntimeError, match="no backward"):
-            call()
-    assert fa.KERNEL_LAUNCHES == before
+    with launches() as counts:
+        for call in (lambda: fa.flash_attention(q, k, k), lambda: fa.run_kernel(SPLIT, q, k, k),
+                     lambda: fa.run_kernel(TILE, q, k, k)):
+            with pytest.raises(RuntimeError, match="no backward"):
+                call()
+    assert not any(flash(counts).values())
     with torch.no_grad():
         out = fa.flash_attention(q, k, k)
     torch.testing.assert_close(out, fa.flash_attention_reference(q.detach(), k, k),
@@ -406,12 +444,7 @@ def test_train_step_on_cuda_matches_cpu(gen):
     """A small train step on the card with the flash impl installed: no
     kernel launch, the CPU's loss and gradients (fp32 summation orders);
     then an eval batch launches both kernels."""
-    from nvblox_mindmap_torch.models.converter import (
-        apply_inference_settings,
-        convert_to_flash_attention,
-    )
     from nvblox_mindmap_torch.models.diffuser_actor import DiffuserActorConfig
-    from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
     from nvblox_mindmap_torch.training.trainer import Trainer, TrainerConfig
 
     cfg = DiffuserActorConfig(embedding_dim=72, num_attn_heads=8, vertex_feature_dim=3,
@@ -428,16 +461,14 @@ def test_train_step_on_cuda_matches_cpu(gen):
     noise = torch.from_numpy(rng.normal(size=(2, 1, 1, 9)).astype(np.float32))
     timesteps = torch.from_numpy(rng.integers(0, 100, 2))
     trainers = {d: Trainer(cfg, TrainerConfig(), bounds, device=d) for d in ("cuda", "cpu")}
-    try:
-        apply_inference_settings(convert_to_flash_attention())
-        before = dict(fa.KERNEL_LAUNCHES)
+    with attention("flash"):
         losses = {}
-        for device, trainer in trainers.items():
-            trainer.init_state()
-            losses[device] = trainer.compute_loss_and_grads(batch, 0, noise.to(device),
-                                                            timesteps.to(device))
-        torch.cuda.synchronize()
-        assert fa.KERNEL_LAUNCHES == before
+        with launches() as counts:
+            for device, trainer in trainers.items():
+                trainer.init_state()
+                losses[device] = trainer.compute_loss_and_grads(batch, 0, noise.to(device),
+                                                                timesteps.to(device))
+        assert counts["calls"] == 0 and not any(flash(counts).values())
         torch.testing.assert_close(losses["cuda"]["total"].cpu(), losses["cpu"]["total"],
                                    rtol=1e-5, atol=0)
         cpu_params = dict(trainers["cpu"].model.named_parameters())
@@ -448,12 +479,9 @@ def test_train_step_on_cuda_matches_cpu(gen):
                 continue
             torch.testing.assert_close(p.grad.cpu(), ref, rtol=1e-3, atol=1e-5, msg=name)
         trainers["cuda"].optimizer.step()
-        trainers["cuda"].eval_step(batch, generator=torch.Generator("cuda").manual_seed(0))
-        torch.cuda.synchronize()
-        assert fa.KERNEL_LAUNCHES[SPLIT] - before[SPLIT] == 3 + 2 * 10
-        assert fa.KERNEL_LAUNCHES[TILE] - before[TILE] == 8 * 10
-    finally:
-        set_default_attention_impl("eager")
+        with launches() as counts:
+            trainers["cuda"].eval_step(batch, generator=torch.Generator("cuda").manual_seed(0))
+        assert flash(counts) == per_goal(10)
 
 
 def test_clip_fpn_train_step_repeats_bit_for_bit_on_cuda(gen):
@@ -566,45 +594,44 @@ def test_fps_kernel_edge_rows(gen):
 
 def test_fps_kernel_launches_once_per_call(gen):
     points = _fps_points(gen, 2, 3072, 120)
-    before = fps_ops.farthest_point_sampling.launches
-    for _ in range(3):
-        idx = fps_ops.farthest_point_sampling(points, 614)
-    assert fps_ops.farthest_point_sampling.launches - before == 3
+    with launches() as counts:
+        for _ in range(3):
+            idx = fps_ops.farthest_point_sampling(points, 614)
+    assert counts["fps"] == 3
     assert torch.equal(idx, fps_ops.farthest_point_sampling_reference(points, 614)[0])
     from nvblox_mindmap_torch.models.encoder import Encoder
 
     enc = Encoder(embedding_dim=120, fps_subsampling_factor=5, data_type="mesh").cuda()
     mask = torch.ones(2, 3072, dtype=torch.bool, device="cuda")
-    before = fps_ops.farthest_point_sampling.launches
-    enc.run_fps(points, torch.zeros(2, 3072, 3, device="cuda"), mask)
-    assert fps_ops.farthest_point_sampling.launches - before == 1
+    with launches() as counts:
+        enc.run_fps(points, torch.zeros(2, 3072, 3, device="cuda"), mask)
+    assert counts["fps"] == 1
 
 
 def test_fps_kernel_without_distances_stores_none(gen):
     """The program's calls ask for no running distances: the same picks,
     one launch, and no (B, N) output."""
     points = _fps_points(gen, 3, 3072, 120)
-    before = fps_ops.farthest_point_sampling.launches
-    idx, dist = fps_ops.run_kernel(points, 614, with_distances=False)
-    assert dist is None
-    assert fps_ops.farthest_point_sampling.launches - before == 1
+    with launches() as counts:
+        idx, dist = fps_ops.run_kernel(points, 614, with_distances=False)
+    assert dist is None and counts["fps"] == 1
     assert torch.equal(idx, fps_ops.farthest_point_sampling_reference(points, 614)[0])
 
 
 def test_fps_kernel_raises_instead_of_falling_back(gen):
     points = _fps_points(gen, 2, 100, 120)
-    before = fps_ops.farthest_point_sampling.launches
-    with pytest.raises(TypeError, match="float32"):
-        fps_ops.farthest_point_sampling(points.double(), 10)
-    with pytest.raises(ValueError, match="contiguous"):
-        fps_ops.farthest_point_sampling(points.transpose(1, 2), 10)
-    with pytest.raises(ValueError, match="num_samples"):
-        fps_ops.farthest_point_sampling(points, 101)
-    with pytest.raises(ValueError, match="start_idx"):
-        fps_ops.farthest_point_sampling(points, 10, start_idx=100)
-    with pytest.raises(ValueError, match="one warp"):  # ATen sums 8 rows of 120 over 64 lanes
-        fps_ops.farthest_point_sampling(points[:1, :8].contiguous(), 2)
-    assert fps_ops.farthest_point_sampling.launches == before
+    with launches() as counts:
+        with pytest.raises(TypeError, match="float32"):
+            fps_ops.farthest_point_sampling(points.double(), 10)
+        with pytest.raises(ValueError, match="contiguous"):
+            fps_ops.farthest_point_sampling(points.transpose(1, 2), 10)
+        with pytest.raises(ValueError, match="num_samples"):
+            fps_ops.farthest_point_sampling(points, 101)
+        with pytest.raises(ValueError, match="start_idx"):
+            fps_ops.farthest_point_sampling(points, 10, start_idx=100)
+        with pytest.raises(ValueError, match="one warp"):  # ATen sums 8 rows of 120 over 64 lanes
+            fps_ops.farthest_point_sampling(points[:1, :8].contiguous(), 2)
+    assert counts["fps"] == 0
 
 
 # ------------------------------------------------- the sampler's CUDA graph
@@ -664,22 +691,18 @@ def _sampler_inputs(model, gen, B, sampler):
 def _counted_call(model, inputs, sampler, eager=False):
     """One ``sample_trajectory`` call: its outputs, and what it added to the
     flash counters and to the sampler's path counters."""
-    import contextlib
     from unittest import mock
 
     from nvblox_mindmap_torch.models import diffuser_actor as da
 
     prepared, bounds, noise = inputs
     counters = ("graph_captures", "graph_replays", "eager_calls")
-    before = (fa.flash_attention.launches, dict(fa.KERNEL_LAUNCHES),
-              [getattr(da.sample_trajectory, c) for c in counters])
+    before = [getattr(da.sample_trajectory, c) for c in counters]
     eager_only = mock.patch.object(da, "_graph_applies", lambda *a: False)
-    with eager_only if eager else contextlib.nullcontext():
+    with eager_only if eager else contextlib.nullcontext(), launches() as counts:
         out = da.sample_trajectory(model, prepared, bounds, **sampler, **noise)
-    torch.cuda.synchronize()
-    launches = {k: n - before[1][k] for k, n in fa.KERNEL_LAUNCHES.items()}
-    paths = {c: getattr(da.sample_trajectory, c) - b for c, b in zip(counters, before[2])}
-    return out, fa.flash_attention.launches - before[0], launches, paths
+    paths = {c: getattr(da.sample_trajectory, c) - b for c, b in zip(counters, before)}
+    return out, counts["calls"], flash(counts), paths
 
 
 def _assert_same_bits(a, b):
@@ -691,11 +714,8 @@ def _assert_same_bits(a, b):
 
 @pytest.fixture
 def flash_impl():
-    from nvblox_mindmap_torch.ops.attention import set_default_attention_impl
-
-    set_default_attention_impl("flash")
-    yield
-    set_default_attention_impl("eager")
+    with attention("flash"):
+        yield
 
 
 @pytest.mark.parametrize("case", sorted(SAMPLER_CASES))
@@ -835,22 +855,19 @@ def test_sampler_graph_counts_per_thread_in_sharded_serving(gen, flash_impl):
     init, _ = sampler_noise(cfg, B, 10, False, gen, "cuda")
 
     def call(eager=False):
-        before = (fa.flash_attention.launches, dict(fa.KERNEL_LAUNCHES),
-                  da.sample_trajectory.graph_captures, da.sample_trajectory.graph_replays)
+        before = (da.sample_trajectory.graph_captures, da.sample_trajectory.graph_replays)
         patch = mock.patch.object(da, "_graph_applies", lambda *a: False)
-        with patch if eager else contextlib.nullcontext():
+        with patch if eager else contextlib.nullcontext(), launches() as counts:
             out = infer(params, batch, init_noise=init)
-        torch.cuda.synchronize()
-        launches = {k: n - before[1][k] for k, n in fa.KERNEL_LAUNCHES.items()}
-        return (out, fa.flash_attention.launches - before[0], launches,
-                da.sample_trajectory.graph_captures - before[2],
-                da.sample_trajectory.graph_replays - before[3])
+        return (out, counts["calls"], flash(counts),
+                da.sample_trajectory.graph_captures - before[0],
+                da.sample_trajectory.graph_replays - before[1])
 
     eager = call(eager=True)
     expected = (2 * (3 + 10 * 10), {SPLIT: 2 * (3 + 2 * 10), TILE: 2 * 8 * 10})
     for captures, replays in ((2, 0), (0, 2), (0, 2)):
-        out, calls, launches, got_captures, got_replays = call()
-        assert (calls, launches) == expected
+        out, calls, by_kernel, got_captures, got_replays = call()
+        assert (calls, by_kernel) == expected
         assert (got_captures, got_replays) == (captures, replays)
         assert torch.equal(out[0], eager[0][0])
     assert (eager[1], eager[2]) == expected
