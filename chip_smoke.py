@@ -30,27 +30,32 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    distances bit for bit, one launch a call, and times both beside the
    kernel's bound at the cells', the flagship's and the fixtures' shapes
    (phase ``fps_kernel``);
-5. times both flash kernels at L = 1..8 (phase ``threshold``: the measurement
+5. holds the pool update (``csrc/integrate_pool.cu``) to its plain version,
+   pool and weights bit for bit, one launch a call, and times both beside
+   the kernel's byte bound for the 768-d and 120-d feature pools and the
+   color pool at 512x512 over a map of 395 live pages (phase
+   ``integrate_pool_kernel``);
+6. times both flash kernels at L = 1..8 (phase ``threshold``: the measurement
    behind the split kernel's limit);
-6. times the RADIO ViT-B/16 backbone's forward at 2 cameras x 512x512, batch
+7. times the RADIO ViT-B/16 backbone's forward at 2 cameras x 512x512, batch
    1 and 8, beside its bound (phase ``vit``);
-7. times ``sample_trajectory`` at the goal cells' shapes (B = 1, 3072 keys,
+8. times ``sample_trajectory`` at the goal cells' shapes (B = 1, 3072 keys,
    DDIM-10), the eager denoiser loop against its CUDA graph replay, bit for
    bit and launch for launch (phase ``sampler_graph``);
-8. holds the CLIP ResNet-50 FPN extractor (a seeded random trunk converted
+9. holds the CLIP ResNet-50 FPN extractor (a seeded random trunk converted
    by the port's converter, with an FPN) on the card against the CPU, times
    it at B = 2 and 32 beside its FLOP bound (IEEE fp32, and with TF32
    allowed), and checks that one backward pass reaches only the FPN levels
    that res3 reads (phase ``clip_extractor``);
-9. runs the main paths at full width on random inputs, untimed, each with
-   the launch counters set to 0 at its start: ``sample_trajectory``
-   (DDIM-10, B = 1 and 8) on the mesh and the rgbd_and_mesh models against
-   eager attention, one closed-loop policy goal over 2 cameras, one train
-   step and one eval batch at the train batch; each path's flash and FPS
-   launches are held to their expected counts, and every flash shape they
-   launched that phase ``kernel_check`` did not hold is held and timed now
-   (phase ``main_paths``);
-10. prints one JSON line of per-kernel numbers, ``{"kernels": [...]}``, whose
+10. runs the main paths at full width on random inputs, untimed, each with
+    the launch counters set to 0 at its start: ``sample_trajectory``
+    (DDIM-10, B = 1 and 8) on the mesh and the rgbd_and_mesh models against
+    eager attention, two closed-loop policy steps and one goal over 2
+    cameras, one train step and one eval batch at the train batch; each
+    path's flash, FPS and pool-update launches are held to their expected
+    counts, and every flash shape they launched that phase ``kernel_check``
+    did not hold is held and timed now (phase ``main_paths``);
+11. prints one JSON line of per-kernel numbers, ``{"kernels": [...]}``, whose
     ``launches`` are the main paths' launches of each kernel (in all and by
     path), then ``{"ok": true, ...}`` as the last line.
 
@@ -517,6 +522,131 @@ def check_fps_kernel():
     return rows
 
 
+# The pool update at the cells' widths: RADIO's 768-d and CLIP's 120-d
+# feature pools from a 512x512 fp16 feature image, and the 3-channel color
+# pool from a 512x512 fp32 RGB image, over cube_stacking's map (1 cm voxels,
+# 1024 pages) of a table and a wall seen by a camera tilted down at it.
+POOL_SHAPES = (("radio_features", 768, "float16"), ("clip_features", 120, "float16"),
+               ("color", 3, "float32"))
+POOL_EYES = ((-0.3, 0.0, 0.45), (-0.28, 0.03, 0.46), (-0.26, 0.06, 0.47))
+
+
+def look_at(eye, target):
+    """(4, 4) camera-to-world pose at ``eye`` looking at ``target``, +y down."""
+    import numpy as np
+
+    eye, target = np.asarray(eye, np.float64), np.asarray(target, np.float64)
+    z = (target - eye) / np.linalg.norm(target - eye)
+    x = np.cross(z, [0.0, 0.0, 1.0])
+    x /= np.linalg.norm(x)
+    T = np.eye(4)
+    T[:3, 0], T[:3, 1], T[:3, 2], T[:3, 3] = x, np.cross(z, x), z, eye
+    return T
+
+
+def planes_depth(T, K, planes):
+    """(IMAGE, IMAGE) z-depth of the nearest of ``planes`` ((n, d): n . p = d)."""
+    import numpy as np
+
+    v, u = np.mgrid[0:IMAGE, 0:IMAGE].astype(np.float64)
+    rays = np.stack([(u - K[0, 2]) / K[0, 0], (v - K[1, 2]) / K[1, 1], np.ones_like(u)], -1)
+    rays = rays @ T[:3, :3].T
+    depth = np.full((IMAGE, IMAGE), np.inf)
+    for n, d in planes:
+        n = np.asarray(n, np.float64)
+        along = rays @ n
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = (d - T[:3, 3] @ n) / along
+        depth = np.minimum(depth, np.where(t > 0, t, np.inf))
+    return np.where(np.isfinite(depth), depth, 0.0).astype(np.float32)
+
+
+def pool_scene(C, image_dtype, gen):
+    """A map after two frames of the table scene (TSDF, pages and pool weights
+    through the plain version), and the third frame: (config, pool,
+    pool_weight, the update's other arguments)."""
+    import torch
+
+    from nvblox_mindmap_torch.mapping import voxel_grid as vg
+    from nvblox_mindmap_torch.mapping.constants import MappingConfig, Tasks
+    from nvblox_mindmap_torch.ops.masks import get_border_mask
+
+    cfg = MappingConfig.for_task(Tasks.CUBE_STACKING, feature_dim=C)
+    K = torch.tensor([[400.0, 0, IMAGE / 2], [0, 400.0, IMAGE / 2], [0, 0, 1]], device="cuda")
+    mask = get_border_mask((IMAGE, IMAGE), cfg.feature_mask_border_percent, device="cuda")
+    state = vg.create_state(cfg, "cuda")
+    dtype = getattr(torch, image_dtype)
+    for i, eye in enumerate(POOL_EYES):
+        T_np = look_at(eye, (0.45, 0.0, 0.0))
+        depth = planes_depth(T_np, K.cpu().numpy(), [((0, 0, 1), 0.0), ((-1, 0, 0), -0.9)])
+        T = torch.as_tensor(T_np, dtype=torch.float32, device="cuda")
+        state = vg.decay(state, cfg)
+        state = vg.integrate_depth(state, cfg, torch.as_tensor(depth, device="cuda"), T, K)
+        state = vg.allocate_pages(state, cfg)
+        image = torch.rand(IMAGE, IMAGE, C, device="cuda", generator=gen).to(dtype)
+        args = (state.page_to_block, state.tsdf, state.weight, image, T, K, mask, cfg, 1.0)
+        if i < len(POOL_EYES) - 1:
+            feat, feat_weight = vg._integrate_pool_reference(
+                torch.rand(state.feat.shape[:2] + (C,), device="cuda", generator=gen).half()
+                if i == 0 else state.feat, state.feat_weight, *args)
+            state.feat, state.feat_weight = feat, feat_weight
+    return cfg, state.feat, state.feat_weight, args
+
+
+def check_pool_kernel():
+    """Phase ``integrate_pool_kernel``: at each of ``POOL_SHAPES`` the kernel's
+    pool and weights equal the plain version's on the card to the bit, one
+    launch a call; its time beside its bound and the plain version's.
+    Returns the rows."""
+    import torch
+
+    from nvblox_mindmap_torch.mapping import voxel_grid as vg
+    from nvblox_mindmap_torch.ops import integrate_pool as ip
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    rows = {}
+    for name, C, image_dtype in POOL_SHAPES:
+        cfg, pool, pool_weight, args = pool_scene(C, image_dtype, gen)
+        ref_pool, ref_weight = vg._integrate_pool_reference(pool, pool_weight, *args)
+        out_pool, out_weight = pool.clone(), pool_weight.clone()
+        before = ip.integrate_pool.launches
+        vg._integrate_pool(out_pool, out_weight, *args)
+        launches = ip.integrate_pool.launches - before
+        torch.cuda.synchronize()
+        equal = (torch.equal(out_pool.view(torch.int16), ref_pool.view(torch.int16))
+                 and torch.equal(out_weight.view(torch.int32), ref_weight.view(torch.int32)))
+        if not equal or launches != 1:
+            raise AssertionError(
+                f"integrate_pool_kernel {name}: "
+                f"{int((out_pool.view(torch.int16) != ref_pool.view(torch.int16)).sum())} pool "
+                f"and {int((out_weight != ref_weight).sum())} weight entries differ, "
+                f"{launches} launches")
+        live = args[0] >= 0
+        measured = int((ref_weight > pool_weight).sum())
+        rewritten = int(((ref_weight > 0) & live[:, None]).sum())
+        live_voxels = int(live.sum()) * pool.shape[1]
+        kernel_ms = gpu_time_ms(lambda: vg._integrate_pool(out_pool, out_weight, *args))
+        plain_ms = event_ms(lambda: vg._integrate_pool_reference(pool, pool_weight, *args), 5)
+        # The bytes the update needs: each measured voxel's pool row read and
+        # written and its image row read; each live voxel's TSDF and weight
+        # read and its pool weight read and written; the page table.
+        image_bytes = args[3].element_size()
+        needed = (measured * C * (2 + 2 + image_bytes) + 16 * live_voxels
+                  + 4 * args[0].numel())
+        bound_ms = needed / PEAK_BYTES_PER_S * 1e3
+        lp = ip.launch_params(out_pool, out_weight, *args[:7], cfg.block_size)
+        rows[name] = dict(C=C, image=image_dtype, pages=int(live.numel()),
+                          live_pages=int(live.sum()), measured_voxels=measured,
+                          rewritten_rows=rewritten, bits_equal=True, launches_per_call=launches,
+                          kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by="bytes", share=bound_ms / kernel_ms,
+                          speedup=plain_ms / kernel_ms, lanes=lp.lanes)
+        phase("integrate_pool_kernel", shape=name, **rows[name])
+        del pool, pool_weight, ref_pool, ref_weight, out_pool, out_weight, args
+        torch.cuda.empty_cache()
+    return rows
+
+
 GOAL_KEYS = APP_CONTEXT  # the goal cells' context
 SAMPLER_GRAPH_REPS = 20
 
@@ -841,16 +971,18 @@ def main_path(name, counts, shapes):
     """Within the block the kernels' launches count from 0, and every flash
     launch's (B, H, L, S, D, masked) goes into ``shapes`` (a replayed CUDA
     graph's through ``fa.REPLAYED``). On leaving, ``counts[name]`` holds the
-    block's launches by kernel and ``fps``, and the launches recorded and
-    replayed must be every flash launch counted."""
+    block's launches by kernel, ``fps`` and ``integrate_pool``, and the
+    launches recorded and replayed must be every flash launch counted."""
     from unittest import mock
 
     import torch
 
     from nvblox_mindmap_torch.ops import flash_attention as fa
     from nvblox_mindmap_torch.ops.fps import farthest_point_sampling
+    from nvblox_mindmap_torch.ops.integrate_pool import integrate_pool
 
     fa.flash_attention.launches = farthest_point_sampling.launches = 0
+    integrate_pool.launches = 0
     fa.KERNEL_LAUNCHES.update(dict.fromkeys(fa.KERNELS, 0))
     recorded, replayed, run_kernel = [0], fa.REPLAYED.copy(), fa.run_kernel
 
@@ -865,7 +997,8 @@ def main_path(name, counts, shapes):
     torch.cuda.synchronize()
     new = fa.REPLAYED - replayed
     shapes.update((*c.q_shape[:3], c.keys, c.q_shape[3], c.valid_keys is not None) for c in new)
-    counts[name] = dict(fa.KERNEL_LAUNCHES, fps=farthest_point_sampling.launches)
+    counts[name] = dict(fa.KERNEL_LAUNCHES, fps=farthest_point_sampling.launches,
+                        integrate_pool=integrate_pool.launches)
     if recorded[0] + sum(new.values()) != sum(fa.KERNEL_LAUNCHES.values()):
         raise AssertionError(f"{name}: {recorded[0]} launches recorded, {sum(new.values())} "
                              f"replayed, {fa.KERNEL_LAUNCHES} counted")
@@ -934,10 +1067,12 @@ def check_main_paths(checks):
     sampler = convert_diffusion_scheduler(T)
     counts, shapes = {}, set()
 
-    def expect(name, fps, flash=per_call):
+    def expect(name, fps, flash=per_call, pool=0):
         got = counts[name]
-        if {k: got[k] for k in fa.KERNELS} != flash or got["fps"] != fps:
-            raise AssertionError(f"{name}: launches {got}, expected {flash} and {fps} FPS")
+        if ({k: got[k] for k in fa.KERNELS} != flash or got["fps"] != fps
+                or got["integrate_pool"] != pool):
+            raise AssertionError(f"{name}: launches {got}, expected {flash}, {fps} FPS and "
+                                 f"{pool} pool updates")
 
     for data_type in ("mesh", "rgbd_and_mesh"):
         torch.manual_seed(0)
@@ -969,8 +1104,11 @@ def check_main_paths(checks):
         num_inference_steps=T, scheduler_kind="ddim", stochastic_sampling=False,
         device="cuda")
     env = plane_environment()
-    for _ in range(2):
-        policy.step(env)
+    with main_path("closed_loop_steps", counts, shapes):
+        for _ in range(2):
+            policy.step(env)
+    # Each camera frame updates the color and the feature pool.
+    expect("closed_loop_steps", fps=0, flash=dict.fromkeys(fa.KERNELS, 0), pool=2 * 2 * 2)
     with main_path("closed_loop_goal", counts, shapes):
         (goal,) = policy.get_new_goal(env)
     expect("closed_loop_goal", fps=1)
@@ -1039,6 +1177,7 @@ def main() -> int:
 
     checks = check_kernels()
     fps_rows = check_fps_kernel()
+    pool_rows = check_pool_kernel()
     measure_threshold()
     measure_vit()
     measure_sampler_graph()
@@ -1109,6 +1248,17 @@ def main() -> int:
         "launches_by_path": {path: n["fps"] for path, n in paths.items()},
         "picks_equal_to_eager": all(r["picks_equal"] for r in fps_rows.values()),
         **{f"{name}_{key}": row[key] for name, row in fps_rows.items()
+           for key in ("kernel_ms", "plain_ms", "bound_ms", "share")},
+    })
+    entries.append({
+        "name": "integrate_pool",
+        "route": "cuda",
+        "source": "nvblox_mindmap_torch/csrc/integrate_pool.cu",
+        "replaces": "none: nvblox_mindmap_tpu/mapping/voxel_grid.py:_integrate_pool is XLA ops",
+        "launches": sum(n["integrate_pool"] for n in paths.values()),
+        "launches_by_path": {path: n["integrate_pool"] for path, n in paths.items()},
+        "bits_equal_to_plain": all(r["bits_equal"] for r in pool_rows.values()),
+        **{f"{name}_{key}": row[key] for name, row in pool_rows.items()
            for key in ("kernel_ms", "plain_ms", "bound_ms", "share")},
     })
     print(json.dumps({"kernels": entries}), flush=True)

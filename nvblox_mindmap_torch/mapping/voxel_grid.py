@@ -10,7 +10,12 @@ SURVEY.md section 2.2). The design is the JAX package's:
   block-paged pool mirroring nvblox's 8^3 voxel blocks: an int32 page table
   over the block grid plus a (P, 512, F) fp16 page pool. Pages go to blocks
   that hold near-surface voxels; allocation is a cumsum over the block grid.
-- Every op is pure: state in, new state out.
+- Every op is pure, state in, new state out, with one exception on the
+  card: ``integrate_features``, ``integrate_color`` and ``fuse_frame``
+  update the feature or color pool in place (one launch of
+  ``csrc/integrate_pool.cu``), so they take the input state's pool as
+  donated. A caller that reads the old state's pool afterwards clones it
+  first.
 - The triangle mesh (Surface Nets, ``extract_surface_mesh_device``) and the
   dense layer views (``query_*_dense``) read the state on its device too;
   counts come back as tensors.
@@ -40,6 +45,7 @@ import torch
 
 from nvblox_mindmap_torch.device import DeviceLike, resolve_device
 from nvblox_mindmap_torch.mapping.constants import MappingConfig
+from nvblox_mindmap_torch.ops.integrate_pool import integrate_pool
 
 
 @dataclasses.dataclass
@@ -356,7 +362,24 @@ def _page_voxel_coords(page_to_block: torch.Tensor, config: MappingConfig):
 
 def _integrate_pool(pool, pool_weight, page_to_block, tsdf, weight, image, T_WC, K, mask,
                     config: MappingConfig, measurement_weight: float):
-    """Weighted-average update of a per-voxel page pool from one image.
+    """Weighted-average update of a per-voxel page pool from one image:
+    ``_integrate_pool_reference`` on CPU tensors; on CUDA tensors one launch
+    of ``csrc/integrate_pool.cu`` (``ops.integrate_pool``), which updates
+    ``pool`` and ``pool_weight`` in place, equal to the bit to the plain
+    version, or raises. Returns (pool, pool_weight)."""
+    if pool.device.type == "cpu":
+        return _integrate_pool_reference(pool, pool_weight, page_to_block, tsdf, weight, image,
+                                         T_WC, K, mask, config, measurement_weight)
+    # The per-frame inputs are contiguous on the mapper's path (no copy).
+    return integrate_pool(pool, pool_weight, page_to_block, tsdf, weight, image.contiguous(),
+                          T_WC.contiguous(), K.contiguous(),
+                          None if mask is None else mask.contiguous(), config,
+                          measurement_weight)
+
+
+def _integrate_pool_reference(pool, pool_weight, page_to_block, tsdf, weight, image, T_WC, K,
+                              mask, config: MappingConfig, measurement_weight: float):
+    """The plain version of ``_integrate_pool``: new tensors, the inputs kept.
 
     The average runs in fp32 over the whole pool and is cast back to the
     pool's dtype; voxels without weight keep their value bit for bit.
@@ -402,7 +425,12 @@ def integrate_features(
     K: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
 ) -> VoxelGridState:
-    """Fuse a (H, W, F) feature image into the block-paged feature pool."""
+    """Fuse a (H, W, F) feature image into the block-paged feature pool.
+
+    On the card the input state's ``feat`` is donated: the returned state's
+    ``feat`` is the same tensor, updated in place (its weights are new, from
+    ``allocate_pages``).
+    """
     state = allocate_pages(state, config)
     feat, feat_weight = _integrate_pool(
         state.feat, state.feat_weight, state.page_to_block, state.tsdf, state.weight,
@@ -419,7 +447,11 @@ def integrate_color(
     K: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
 ) -> VoxelGridState:
-    """Fuse a (H, W, 3) color image into the color pool."""
+    """Fuse a (H, W, 3) color image into the color pool.
+
+    On the card the input state's ``color`` is donated, as ``feat`` is to
+    ``integrate_features``.
+    """
     state = allocate_pages(state, config)
     color, color_weight = _integrate_pool(
         state.color, state.color_weight, state.page_to_block, state.tsdf, state.weight,
@@ -723,7 +755,8 @@ def fuse_frame(
     The color weights decay (and are freed with their pages) but no color
     is integrated, as in the JAX package's fused program. Masks are
     per-resolution: ``depth_mask`` at the depth image's, ``feature_mask`` at
-    the feature image's.
+    the feature image's. On the card the input state's ``feat`` is donated,
+    as to ``integrate_features``.
     """
     if depth_mask is not None and tuple(depth_mask.shape) != tuple(depth.shape):
         raise ValueError(

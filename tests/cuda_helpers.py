@@ -21,6 +21,7 @@ from nvblox_mindmap_torch.ops.attention import (
     get_default_attention_impl,
     set_default_attention_impl,
 )
+from nvblox_mindmap_torch.ops.integrate_pool import integrate_pool
 
 DEVICE = "cuda"
 SPLIT, TILE = fa.KERNELS
@@ -41,16 +42,18 @@ def per_goal(T, goals=1):
 @contextlib.contextmanager
 def launches():
     """Yields a dict that, when the block ends, holds each flash kernel's
-    launches in it, the flash wrapper's calls under ``calls`` and the FPS
-    kernel's launches under ``fps``."""
+    launches in it, the flash wrapper's calls under ``calls``, the FPS
+    kernel's launches under ``fps`` and the pool kernel's under
+    ``integrate_pool``."""
     flash, calls = dict(fa.KERNEL_LAUNCHES), fa.flash_attention.launches
-    fps = fps_ops.farthest_point_sampling.launches
+    fps, pool = fps_ops.farthest_point_sampling.launches, integrate_pool.launches
     out = {}
     yield out
     torch.cuda.synchronize()
     out.update({k: n - flash[k] for k, n in fa.KERNEL_LAUNCHES.items()},
                calls=fa.flash_attention.launches - calls,
-               fps=fps_ops.farthest_point_sampling.launches - fps)
+               fps=fps_ops.farthest_point_sampling.launches - fps,
+               integrate_pool=integrate_pool.launches - pool)
 
 
 def flash(counts):

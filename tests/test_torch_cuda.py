@@ -394,18 +394,23 @@ def test_mapper_on_cuda_matches_cpu(gen, include_dynamic):
     size = 48
     K = np.asarray([[40.0, 0, 24], [0, 40.0, 24], [0, 0, 1]], np.float32)
     vv, uu = np.mgrid[0:size, 0:size] / size
-    for i in range(3):
-        depth = (1.0 + 0.15 * np.sin(5 * uu + i) * np.cos(3 * vv)).astype(np.float32)
-        depth[rng.uniform(size=depth.shape) < 0.05] = 0.0
-        T = np.eye(4, dtype=np.float32)
-        T[:3, 3] = rng.uniform(-0.05, 0.05, 3)
-        feats = rng.normal(size=(2 * size, 2 * size, 8)).astype(np.float32)
-        rgb = rng.uniform(size=(size, size, 3)).astype(np.float32)
-        robot = np.zeros((size, size), bool)
-        robot[10:30, 5 + 5 * i:20 + 5 * i] = True
-        for mapper in mappers.values():
-            mapper.decay()
-            nvblox_integrate(mapper, cfg, depth, feats, K, T, rgb, robot, include_dynamic)
+    frames = 3
+    with launches() as counts:
+        for i in range(frames):
+            depth = (1.0 + 0.15 * np.sin(5 * uu + i) * np.cos(3 * vv)).astype(np.float32)
+            depth[rng.uniform(size=depth.shape) < 0.05] = 0.0
+            T = np.eye(4, dtype=np.float32)
+            T[:3, 3] = rng.uniform(-0.05, 0.05, 3)
+            feats = rng.normal(size=(2 * size, 2 * size, 8)).astype(np.float32)
+            rgb = rng.uniform(size=(size, size, 3)).astype(np.float32)
+            robot = np.zeros((size, size), bool)
+            robot[10:30, 5 + 5 * i:20 + 5 * i] = True
+            for mapper in mappers.values():
+                mapper.decay()
+                nvblox_integrate(mapper, cfg, depth, feats, K, T, rgb, robot, include_dynamic)
+    # The card's color and feature updates went through the pool kernel: two
+    # launches a frame and map (the CPU mapper runs the plain version).
+    assert counts["integrate_pool"] == 2 * frames * len(mappers["cuda"].states)
     for mid in mappers["cpu"].states:
         ref = state_to_numpy(mappers["cpu"].states[mid])
         out = state_to_numpy(mappers["cuda"].states[mid])
@@ -418,6 +423,189 @@ def test_mapper_on_cuda_matches_cpu(gen, include_dynamic):
         assert vc.shape == v.shape and len(v) > 50
         np.testing.assert_allclose(vc, v, atol=1e-5, rtol=0)
         np.testing.assert_allclose(fc, f, atol=1e-3, rtol=0)
+
+
+# ------------------------------------------------------- the pool kernel
+
+# ``csrc/integrate_pool.cu`` against the plain version run on the same CUDA
+# tensors, compared bit for bit (-0 and +0 apart). The map is 1/16 m voxels
+# from origins on that grid, so every voxel centre is exact in fp32; the
+# first frame's camera sits at the origin looking down +z with f = 16 and
+# c = 24 over a 48x48 image: voxels at z = 1 project to u = i + 16.5 (rintf's
+# half-way case), at z = 0.5 to u = 2i + 9 (i = 19 on the image's last
+# column, i = 20 past it), at z = 0.25 partly off the image, at z = 0 onto
+# the 1e-6 guard, and below behind the camera. The later frames move and
+# turn the camera, with decay in between.
+POOL_SIZE = 48
+POOL_LIVE = 24  # of 40 pages over 36 blocks: the rest free, reclaimed ones stale
+
+
+def _pool_config(C):
+    from nvblox_mindmap_torch.mapping.constants import MappingConfig
+
+    return MappingConfig(voxel_size_m=0.0625, aabb_min_m=(-0.5, -0.5, -0.53125),
+                         aabb_max_m=(1.0, 1.0, 1.46875), min_integration_distance_m=0.1,
+                         feature_dim=C, max_feature_pages=40)
+
+
+def _pool_state(gen, C):
+    """A random map: live pages on distinct blocks, free pages with stale rows
+    and zero weights, -0 in about 5% of the pool."""
+    cfg = _pool_config(C)
+    X, Y, Z = cfg.grid_shape
+    P, slots = cfg.max_feature_pages, cfg.block_size**3
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    n_blocks = int(np.prod(cfg.block_grid_shape))
+    page_to_block = torch.full((P,), -1, dtype=torch.int32, device="cuda")
+    pages = torch.randperm(P, generator=gen, device="cuda")[:POOL_LIVE]
+    page_to_block[pages] = torch.randperm(n_blocks, generator=gen, device="cuda")[
+        :POOL_LIVE].to(torch.int32)
+    pool = torch.randn(P, slots, C, generator=gen, device="cuda").half()
+    pool[rand(P, slots, C) < 0.05] = -0.0
+    live = (page_to_block >= 0)[:, None]
+    pool_weight = 3 * rand(P, slots) * (rand(P, slots) > 0.3) * live
+    tsdf = (2 * rand(X, Y, Z) - 1) * cfg.truncation_distance_m
+    weight = rand(X, Y, Z) * (rand(X, Y, Z) > 0.4)
+    return cfg, pool, pool_weight, page_to_block, tsdf, weight
+
+
+def _pool_frame(gen, C, dtype, masked, i):
+    image = torch.randn(POOL_SIZE, POOL_SIZE, C, generator=gen, device="cuda").to(dtype)
+    image[torch.rand(image.shape, generator=gen, device="cuda") < 0.05] = -0.0
+    mask = None
+    if masked:
+        mask = torch.rand(POOL_SIZE, POOL_SIZE, generator=gen, device="cuda") > 0.3
+    T = torch.eye(4, dtype=torch.float64)
+    if i > 0:  # a turn about a random axis and a shift
+        axis = torch.randn(3, generator=gen, device="cuda").double().cpu()
+        angle = 0.1 * i
+        kx, ky, kz = (axis / axis.norm()).tolist()
+        cross = torch.tensor([[0, -kz, ky], [kz, 0, -kx], [-ky, kx, 0]], dtype=torch.float64)
+        T[:3, :3] = (torch.eye(3, dtype=torch.float64) + np.sin(angle) * cross
+                     + (1 - np.cos(angle)) * cross @ cross)
+        T[:3, 3] = torch.tensor([0.05, -0.03, 0.02]) * i
+    K = torch.tensor([[16.0, 0, 24], [0, 16.0, 24], [0, 0, 1]])
+    return image, T.float().to("cuda"), K.to("cuda"), mask
+
+
+def _assert_bits_equal(out, ref, what):
+    bits = {torch.float16: torch.int16, torch.float32: torch.int32}[out.dtype]
+    differ = out.view(bits) != ref.view(bits)
+    assert not bool(differ.any()), f"{what}: {int(differ.sum())} of {out.numel()} differ"
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C", [3, 8, 120, 768])
+def test_pool_kernel_equals_plain_version(gen, C, dtype, masked):
+    """Three frames: pool and weights equal to the bit the plain version's on
+    the card after each, one launch a call, updated in place."""
+    from nvblox_mindmap_torch.mapping import voxel_grid as vg
+
+    cfg, pool, pool_weight, page_to_block, tsdf, weight = _pool_state(gen, C)
+    ref_pool, ref_weight = pool.clone(), pool_weight.clone()
+    for i in range(3):
+        if i:
+            pool_weight = vg._decay_pool_weight(pool_weight, cfg)
+            ref_weight = vg._decay_pool_weight(ref_weight, cfg)
+        image, T, K, mask = _pool_frame(gen, C, dtype, masked, i)
+        args = (page_to_block, tsdf, weight, image, T, K, mask, cfg, 0.7)
+        before_pool, before_weight = ref_pool, ref_weight
+        ref_pool, ref_weight = vg._integrate_pool_reference(ref_pool, ref_weight, *args)
+        with launches() as counts:
+            out = vg._integrate_pool(pool, pool_weight, *args)
+        assert counts["integrate_pool"] == 1
+        assert out[0] is pool and out[1] is pool_weight
+        _assert_bits_equal(pool, ref_pool, f"pool, frame {i}")
+        _assert_bits_equal(pool_weight, ref_weight, f"weights, frame {i}")
+        # The frame measured voxels and rewrote rows.
+        assert bool((ref_weight > before_weight).any())
+        assert bool((ref_pool.view(torch.int16) != before_pool.view(torch.int16)).any())
+
+
+def test_pool_kernel_non_finite_pixels(gen):
+    """Inf and NaN pixels: the plain version's NaN reaches every weighted
+    voxel that reads such a pixel, measured or not; the kernel's too."""
+    from nvblox_mindmap_torch.mapping import voxel_grid as vg
+
+    cfg, pool, pool_weight, page_to_block, tsdf, weight = _pool_state(gen, 8)
+    image, T, K, mask = _pool_frame(gen, 8, torch.float32, False, 1)
+    image[::7, ::5, 2] = float("inf")
+    image[3::11, ::3, 5] = float("nan")
+    args = (page_to_block, tsdf, weight, image, T, K, mask, cfg, 1.0)
+    ref_pool, ref_weight = vg._integrate_pool_reference(pool.clone(), pool_weight.clone(), *args)
+    vg._integrate_pool(pool, pool_weight, *args)
+    nan = ref_pool.isnan()
+    assert bool(nan.any()) and torch.equal(pool.isnan(), nan)
+    _assert_bits_equal(pool[~nan], ref_pool[~nan], "pool")
+    _assert_bits_equal(pool_weight, ref_weight, "weights")
+
+
+def test_pool_kernel_donation_through_the_functional_api(gen):
+    """``integrate_features`` / ``integrate_color`` / ``fuse_frame`` return
+    the input state's pool, updated in place, equal to the plain version."""
+    from nvblox_mindmap_torch.mapping import voxel_grid as vg
+
+    cfg, pool, pool_weight, page_to_block, tsdf, weight = _pool_state(gen, 120)
+    state = vg.create_state(cfg, "cuda")
+    state = vg.VoxelGridState(
+        tsdf=tsdf, weight=weight, page_table=state.page_table, page_to_block=state.page_to_block,
+        num_pages=state.num_pages, feat=pool, feat_weight=torch.zeros_like(pool_weight),
+        color=pool[..., :3].contiguous(), color_weight=torch.zeros_like(pool_weight))
+    image, T, K, mask = _pool_frame(gen, 120, torch.float16, True, 0)
+    rgb = torch.rand(POOL_SIZE, POOL_SIZE, 3, generator=gen, device="cuda")
+    for name, update, pool_name in (
+            ("integrate_features", lambda s: vg.integrate_features(s, cfg, image, T, K, mask),
+             "feat"),
+            ("integrate_color", lambda s: vg.integrate_color(s, cfg, rgb, T, K), "color")):
+        plain = vg.allocate_pages(state, cfg)
+        ref = vg._integrate_pool_reference(
+            getattr(plain, pool_name).clone(), getattr(plain, pool_name + "_weight"),
+            plain.page_to_block, plain.tsdf, plain.weight,
+            image if pool_name == "feat" else rgb, T, K, mask if pool_name == "feat" else None,
+            cfg, cfg.projective_appearance_integrator_measurement_weight
+            if pool_name == "feat" else 1.0)
+        donated = getattr(state, pool_name)
+        with launches() as counts:
+            state = update(state)
+        assert counts["integrate_pool"] == 1, name
+        assert getattr(state, pool_name) is donated, name
+        _assert_bits_equal(getattr(state, pool_name), ref[0], name)
+        _assert_bits_equal(getattr(state, pool_name + "_weight"), ref[1], name)
+    depth = torch.full((POOL_SIZE, POOL_SIZE), 0.75, device="cuda")
+    donated = state.feat
+    with launches() as counts:
+        fused = vg.fuse_frame(state, cfg, depth, image, T, K, K, feature_mask=mask)
+    assert counts["integrate_pool"] == 1 and fused.feat is donated
+
+
+def test_pool_kernel_raises_instead_of_falling_back(gen):
+    from nvblox_mindmap_torch.mapping import voxel_grid as vg
+    from nvblox_mindmap_torch.ops.integrate_pool import integrate_pool
+
+    cfg, pool, pool_weight, page_to_block, tsdf, weight = _pool_state(gen, 8)
+    image, T, K, mask = _pool_frame(gen, 8, torch.float32, True, 0)
+    rest = (T, K, mask, cfg, 1.0)
+    with launches() as counts:
+        with pytest.raises(TypeError, match="fp16, bf16 or fp32 image"):
+            vg._integrate_pool(pool, pool_weight, page_to_block, tsdf, weight, image.double(),
+                               *rest)
+        with pytest.raises(TypeError, match="fp16 pool"):
+            vg._integrate_pool(pool.float(), pool_weight, page_to_block, tsdf, weight, image,
+                               *rest)
+        with pytest.raises(ValueError, match="contiguous image"):
+            integrate_pool(pool, pool_weight, page_to_block, tsdf, weight,
+                           image.transpose(0, 1), *rest)
+        with pytest.raises(ValueError, match=r"\(H, W, 8\)"):
+            vg._integrate_pool(pool, pool_weight, page_to_block, tsdf, weight, image[..., :4],
+                               *rest)
+        with pytest.raises(ValueError, match="every tensor"):
+            vg._integrate_pool(pool, pool_weight, page_to_block, tsdf, weight, image, T.cpu(),
+                               K, mask, cfg, 1.0)
+    assert counts["integrate_pool"] == 0
 
 
 # ------------------------------------------------------------------ training
