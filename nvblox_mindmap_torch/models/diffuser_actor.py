@@ -207,7 +207,9 @@ class DiffuserActor(nn.Module):
         pcd_valid_mask (B, ncam, H, W); vertex_features (B, Nv, C); vertices
         (B, Nv, 3); instruction (B, T, 512), read with ``use_instruction``;
         gripper_history (B, nhist, G, 9); curr_closedness (B, nhist, G, 1).
-        The context is the image tokens, then the mesh's.
+        The context is the image tokens, then the mesh's. The encoder's
+        counters ``context_tokens`` and ``fps_kept`` take this call's context
+        and FPS token counts (shapes, so nothing waits for the device).
         """
         with span("model/encode"):
             cfg = self.config
@@ -232,9 +234,10 @@ class DiffuserActor(nn.Module):
             if cfg.use_instruction:
                 if instruction is None:
                     raise ValueError("use_instruction needs an instruction (B, T, 512)")
-                instr_feats, _ = self.encoder.encode_instruction(instruction)
-                context_feats = self.encoder.vision_language_attention(context_feats, instr_feats,
-                                                                       impl=impl)
+                with span("encoder/language"):
+                    instr_feats, _ = self.encoder.encode_instruction(instruction)
+                    context_feats = self.encoder.vision_language_attention(
+                        context_feats, instr_feats, impl=impl)
 
             adaln_gripper_feats, _, gripper_attn_weights = (
                 self.encoder.encode_gripper_history(
@@ -249,6 +252,8 @@ class DiffuserActor(nn.Module):
                 fps_feats = context_feats
                 fps_pos = self.encoder.relative_pe(context)
                 fps_mask = context_mask
+            self.encoder.context_tokens = context_feats.shape[1]
+            self.encoder.fps_kept = fps_feats.shape[1]
             return {
                 "context_feats": context_feats,
                 "context": context,

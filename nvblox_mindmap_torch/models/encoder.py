@@ -83,6 +83,10 @@ class Encoder(nn.Module):
         self.fps_subsampling_factor = fps_subsampling_factor
         self.encode_openness = encode_openness
         self.use_shared_feature_encoder = use_shared_feature_encoder
+        # Counters of the last ``DiffuserActor.encode``: context tokens, and
+        # tokens that FPS kept (None before the first).
+        self.context_tokens: Optional[int] = None
+        self.fps_kept: Optional[int] = None
         if data_type in ("rgbd", "rgbd_and_mesh"):
             self.feature_extractor = make_feature_extractor(
                 feature_type, feature_image_size, num_prefix_tokens=feature_num_prefix_tokens

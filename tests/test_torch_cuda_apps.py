@@ -137,6 +137,73 @@ def test_language_model_through_the_kernels(card, B):
     assert bool(((traj - eager).abs().flatten(1).amax(1)[same_picks] <= TRAJ_ATOL).all())
 
 
+def test_peract_policy_replays_its_loop_bit_equal(card):
+    """3D Diffuser Actor's PerAct configuration at its smallest size, built as
+    the open-loop app builds it: ``rgbd`` over the CLIP ResNet-50 FPN, four
+    64x64 cameras (256 tokens, FPS to 51), a (1, 53, 512) instruction, xyzw
+    quaternions, stochastic DDPM-100 through ``make_infer_fn``. One capture
+    for the goal shape, whose static inputs hold the instruction's features
+    and the step noise; each replay, on other instructions and seeds, equals
+    the eager loop to the bit, with its flash launches: per goal 3 + 3*T
+    split (the history, then per step the cross-attention and the
+    trajectory-to-instruction layer) and 2 + 8*T tile (the vision-language
+    layers, then the self-attention stack)."""
+    from nvblox_mindmap_torch.apps.run_open_loop_policy import make_infer_fn
+    from nvblox_mindmap_torch.models import diffuser_actor as da
+    from nvblox_mindmap_torch.utils.config import ModelArgs, model_config_from_args
+
+    args = ModelArgs(data_type="rgbd", feature_type="clip_resnet50_fpn", image_size=(64, 64),
+                     feature_image_size=(8, 8), use_instruction=1, lang_enhanced=0,
+                     embedding_dim=120, num_vis_ins_attn_layers=2, fps_subsampling_factor=5,
+                     num_history=3, diffusion_timesteps=100, rotation_parametrization="6D",
+                     quaternion_format="xyzw")
+    torch.manual_seed(0)
+    model = da.DiffuserActor(model_config_from_args(args), device=DEVICE)
+    T = 100
+
+    def goal_batch(seed):
+        rng = np.random.default_rng(seed)
+        quat = rng.normal(size=(1, 3, 1, 4))
+        quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+        return {
+            "rgbs": rng.integers(0, 256, (1, 4, 64, 64, 3), dtype=np.uint8),
+            "pcds": rng.uniform(BOUNDS[0], BOUNDS[1], (1, 4, 64, 64, 3)).astype(np.float32),
+            "gripper_history": np.concatenate(
+                [rng.uniform(BOUNDS[0], BOUNDS[1], (1, 3, 1, 3)), quat,
+                 rng.integers(0, 2, (1, 3, 1, 1))], -1).astype(np.float32),
+            "instruction": rng.normal(size=(1, 53, 512)).astype(np.float32),
+        }
+
+    paths = ("graph_captures", "graph_replays", "eager_calls")
+
+    def call(batch, seed, eager=False):
+        before = [getattr(da.sample_trajectory, p) for p in paths]
+        patch = mock.patch.object(da, "_graph_applies", lambda *a: False)
+        with patch if eager else contextlib.nullcontext(), launches() as counts:
+            traj = infer(batch, seed)[0]
+        return traj, flash(counts), tuple(getattr(da.sample_trajectory, p) - b
+                                          for p, b in zip(paths, before))
+
+    first, second = goal_batch(1), goal_batch(2)
+    with attention("flash"):
+        infer = make_infer_fn(model, BOUNDS)
+        eager_a, eager_b = call(first, 11, eager=True), call(second, 12, eager=True)
+        captured = call(first, 11)
+        replay_a, replay_b = call(first, 11), call(second, 12)
+    kernels = {SPLIT: 3 + 3 * T, TILE: 2 + 8 * T}
+    assert [c[1] for c in (eager_a, eager_b, captured, replay_a, replay_b)] == [kernels] * 5
+    assert eager_a[2] == eager_b[2] == (0, 0, 1)
+    assert captured[2] == (1, 0, 0) and replay_a[2] == replay_b[2] == (0, 1, 0)
+    for got, want in ((captured, eager_a), (replay_a, eager_a), (replay_b, eager_b)):
+        assert torch.equal(got[0], want[0])
+    assert not torch.equal(eager_a[0], eager_b[0])
+    assert_trajectory(eager_a[0], 1)
+    (entry,) = da._GRAPHS[model].values()
+    assert entry.inputs["instr_feats"].shape == (1, 53, 120)
+    assert entry.inputs["fps_feats"].shape == (1, 51, 120)
+    assert entry.noise.shape == (T, 1, 1, 1, 9)
+
+
 # ------------------------------------------------------------ the public surface
 
 
